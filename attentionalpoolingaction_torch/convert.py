@@ -1,0 +1,156 @@
+"""Weight bridge: Flax ``{"params", "batch_stats"}`` trees of numpy arrays
+-> the port's state dict.
+
+The names follow the Flax layout of the JAX package (``models/resnet.py``;
+``checkpoint.py::_map_flax_path``), where ``blockB/unit_U`` is ONE key:
+
+    params/resnet/<conv>/kernel (HWIO)          -> resnet.<conv>.weight (OIHW)
+    params/resnet/<x>_bn/{scale,bias}           -> resnet.<x>_bn.{weight,bias}
+    batch_stats/resnet/<x>_bn/{mean,var}        -> resnet.<x>_bn.running_{mean,var}
+    params/resnet/blockB/unit_U/<conv>[_bn]/... -> resnet.blockB/unit_U.<conv>[_bn]...
+    params/head/{attn_w,attn_b,sal_w,sal_b}     -> head.<same>, same shapes
+    params/head/logits/{kernel (F,C), bias}     -> head.logits.{weight (C,F), bias}
+    params/pose_head/pose_conv/{kernel, bias}   -> pose_head.pose_conv.{weight, bias}
+
+A key that maps to nothing, or a parameter of the model that no key fills,
+raises.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, Mapping
+
+import numpy as np
+import torch
+
+from attentionalpoolingaction_torch.models.resnet import BACKBONES
+
+_BN_PARAMS = {"scale": "weight", "bias": "bias"}
+_BN_STATS = {"mean": "running_mean", "var": "running_var"}
+_HEAD_PARAMS = ("attn_w", "attn_b", "sal_w", "sal_b")
+
+
+def _leaves(tree: Mapping, prefix: tuple = ()) -> Iterator[tuple]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _hwio_to_oihw(a: np.ndarray) -> np.ndarray:
+    return np.transpose(a, (3, 2, 0, 1))
+
+
+def _map(coll: str, path: tuple, value: np.ndarray):
+    """(port key, array) for one Flax leaf; raises on an unknown path."""
+    where = f"{coll}/{'/'.join(path)}"
+    *mods, leaf = path
+    if coll == "batch_stats":
+        if mods and mods[0] == "resnet" and mods[-1].endswith("_bn") \
+                and leaf in _BN_STATS:
+            return ".".join(mods + [_BN_STATS[leaf]]), value
+        raise KeyError(f"no port parameter for {where}")
+    if coll != "params" or not mods:
+        raise KeyError(f"no port parameter for {where}")
+    if mods[0] == "resnet" and len(mods) >= 2:
+        if mods[-1].endswith("_bn") and leaf in _BN_PARAMS:
+            return ".".join(mods + [_BN_PARAMS[leaf]]), value
+        if not mods[-1].endswith("_bn") and leaf == "kernel":
+            return ".".join(mods + ["weight"]), _hwio_to_oihw(value)
+    elif mods == ["head"] and leaf in _HEAD_PARAMS:
+        return f"head.{leaf}", value
+    elif mods == ["head", "logits"]:
+        if leaf == "kernel":
+            return "head.logits.weight", value.T
+        if leaf == "bias":
+            return "head.logits.bias", value
+    elif mods == ["pose_head", "pose_conv"]:
+        if leaf == "kernel":
+            return "pose_head.pose_conv.weight", _hwio_to_oihw(value)
+        if leaf == "bias":
+            return "pose_head.pose_conv.bias", value
+    raise KeyError(f"no port parameter for {where}")
+
+
+def flax_to_state_dict(params: Mapping, batch_stats: Mapping
+                       ) -> dict[str, torch.Tensor]:
+    """The port's state dict (CPU float32 tensors) from Flax trees of
+    arrays (anything ``np.asarray`` takes)."""
+    out = {}
+    for coll, tree in (("params", params), ("batch_stats", batch_stats)):
+        for path, value in _leaves(tree):
+            key, arr = _map(coll, path, np.asarray(value, np.float32))
+            out[key] = torch.from_numpy(np.array(arr, np.float32))  # a copy
+    return out
+
+
+def load_flax_variables(model: torch.nn.Module, params: Mapping,
+                        batch_stats: Mapping) -> torch.nn.Module:
+    """Copy Flax variables into ``model`` in place (strict: a parameter or
+    statistic that no Flax leaf fills raises)."""
+    sd = flax_to_state_dict(params, batch_stats)
+    for key, t in model.state_dict().items():
+        if key.endswith("num_batches_tracked"):   # no Flax counterpart
+            sd[key] = torch.zeros_like(t, device="cpu")
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def random_flax_variables(backbone: str, *, num_classes: int,
+                          rank: int = 1, num_positions: int = 49,
+                          seed: int = 0) -> tuple[dict, dict]:
+    """Random (params, batch_stats) of an attention-pooling model in the
+    Flax layout, from a numpy seed: fan-in-scaled convs, BN scale 1 and
+    bias 0 with running mean 0 and var 1, and head weights of std
+    (n*f)^-1/2.  Stands in for a trained checkpoint where none is at
+    hand."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+
+    def conv(kh, kw, cin, cout, gain=2.0):
+        std = np.sqrt(gain / (kh * kw * cin))
+        return (rng.standard_normal((kh, kw, cin, cout)) * std).astype(f32)
+
+    def bn(p_tree, s_tree, name, ch):
+        p_tree[name] = {"scale": np.ones(ch, f32), "bias": np.zeros(ch, f32)}
+        s_tree[name] = {"mean": np.zeros(ch, f32), "var": np.ones(ch, f32)}
+
+    res_p, res_s = {}, {}
+    # the root conv is scaled down further so that the features of uint8
+    # images (minus the VGG means) have std ~1, and the softmax over the
+    # logits is not saturated
+    res_p["conv1"] = {"kernel": conv(7, 7, 3, 64, gain=2.0 / 400 ** 2)}
+    bn(res_p, res_s, "conv1_bn", 64)
+    stage_sizes = BACKBONES[backbone].keywords["stage_sizes"]
+    depth_in = 64
+    for b, units in enumerate(stage_sizes, start=1):
+        base = 64 * 2 ** (b - 1)
+        for u in range(1, units + 1):
+            up, us = {}, {}
+            if depth_in != base * 4:
+                up["shortcut"] = {"kernel": conv(1, 1, depth_in, base * 4)}
+                bn(up, us, "shortcut_bn", base * 4)
+            up["conv1"] = {"kernel": conv(1, 1, depth_in, base)}
+            bn(up, us, "conv1_bn", base)
+            up["conv2"] = {"kernel": conv(3, 3, base, base)}
+            bn(up, us, "conv2_bn", base)
+            # a small last conv keeps the residual sum from growing with
+            # depth through identity batch norms
+            up["conv3"] = {"kernel": conv(1, 1, base, base * 4, gain=0.1)}
+            bn(up, us, "conv3_bn", base * 4)
+            res_p[f"block{b}/unit_{u}"] = up
+            res_s[f"block{b}/unit_{u}"] = us
+            depth_in = base * 4
+
+    feat = depth_in
+    std = (num_positions * feat) ** -0.5
+    head = {
+        "attn_w": (rng.standard_normal((feat, num_classes, rank))
+                   * std).astype(f32),
+        "attn_b": (rng.standard_normal((num_classes, rank))
+                   * 0.01).astype(f32),
+        "sal_w": (rng.standard_normal((feat, rank)) * std).astype(f32),
+        "sal_b": (rng.standard_normal(rank) * 0.01).astype(f32),
+    }
+    return {"resnet": res_p, "head": head}, {"resnet": res_s}

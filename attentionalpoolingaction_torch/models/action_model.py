@@ -1,0 +1,82 @@
+"""ActionModel: backbone + selected pooling head (+ optional pose head).
+Port of the JAX package's ``models/action_model.py``.
+
+images (NHWC) -> ResNet-v1 features -> {avg | attention | pose-attention}
+head -> ``out`` dict with ``logits`` (+ ``pose_heatmaps``, ``features``,
+and with ``return_maps`` ``attn_maps`` / ``saliency``), all NHWC.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from attentionalpoolingaction_torch.models.heads import (
+    AttentionalPoolingHead,
+    AveragePoolingHead,
+    PoseHead,
+)
+from attentionalpoolingaction_torch.models.resnet import (
+    BACKBONES,
+    feature_size,
+)
+
+POOLING_TYPES = ("avg", "attention", "pose_attention")
+NUM_FEATURES = 2048
+
+
+class ActionModel(nn.Module):
+    def __init__(self, num_classes: int, backbone: str = "resnet_v1_101",
+                 pooling: str = "attention", rank: int = 1,
+                 num_joints: int = 16, bn_momentum: float = 0.997,
+                 image_size: int = 224):
+        super().__init__()
+        if pooling not in POOLING_TYPES:
+            raise ValueError(f"unknown pooling {pooling!r}")
+        self.pooling = pooling
+        self.resnet = BACKBONES[backbone](bn_momentum=bn_momentum)
+        if pooling == "avg":
+            self.head = AveragePoolingHead(NUM_FEATURES, num_classes)
+        else:
+            self.head = AttentionalPoolingHead(
+                NUM_FEATURES, num_classes, rank=rank,
+                num_positions=feature_size(image_size) ** 2)
+        if pooling == "pose_attention":
+            self.pose_head = PoseHead(NUM_FEATURES, num_joints)
+
+    def forward(self, images, return_maps: bool = False):
+        # Video clips: a 5-D (B, T, H, W, C) batch runs the backbone per
+        # frame and the pooling spans all T*h*w positions (T folds into the
+        # feature-map height; the heads are position-count-agnostic).
+        clip_t = None
+        if images.ndim == 5:
+            if self.pooling == "pose_attention":
+                raise ValueError(
+                    "pose_attention pooling is per-image (pose targets "
+                    "have no temporal dim) — use pooling='attention' or "
+                    "'avg' for video clips")
+            b, clip_t = images.shape[:2]
+            images = images.reshape((b * clip_t,) + images.shape[2:])
+        feats = self.resnet(images.permute(0, 3, 1, 2), global_pool=False)
+        feats = feats.permute(0, 2, 3, 1).to(torch.float32)   # NHWC
+        if clip_t is not None:
+            bt, fh, fw, ff = feats.shape
+            feats = feats.reshape(bt // clip_t, clip_t * fh, fw, ff)
+
+        out = {}
+        if self.pooling == "avg":
+            out["logits"] = self.head(feats)
+        elif return_maps:
+            out["logits"], (top, bot) = self.head(feats, return_maps=True)
+            if clip_t is not None:
+                # per-frame maps: (B, T, h, w, ...)
+                top = top.reshape((top.shape[0], clip_t, -1) + top.shape[2:])
+                bot = bot.reshape(bot.shape[0], clip_t, -1, bot.shape[2])
+            out["attn_maps"], out["saliency"] = top, bot
+        else:
+            out["logits"] = self.head(feats)
+
+        if self.pooling == "pose_attention":
+            out["pose_heatmaps"] = self.pose_head(feats)
+        out["features"] = feats
+        return out

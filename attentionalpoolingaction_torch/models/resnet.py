@@ -1,0 +1,151 @@
+"""ResNet-v1 backbones, faithful to the TF-slim variant: port of the JAX
+package's ``models/resnet.py``.
+
+Slim semantics reproduced here; each one breaks parity silently if lost:
+
+  * ``conv2d_same``: a strided conv pads explicitly and symmetrically
+    (pad_total = kernel - 1, split floor/ceil), then runs VALID.
+  * The root max-pool is 3x3 stride 2 with TF "SAME" padding, computed per
+    input size and padded with -inf: (0, 1) at 112 px, (1, 1) at 225 px.
+    ``MaxPool2d(3, 2, padding=1)`` gives the same shape but shifts every
+    window.
+  * Down-sampling sits on the *last* unit of each block, on its 3x3 conv
+    and on the projection shortcut.  An identity shortcut subsamples with
+    ``x[:, :, ::s, ::s]``.
+  * Batch norm: eps 1e-5, decay 0.997 (torch momentum 0.003); in eval mode
+    it uses the running statistics only.  Convs carry no bias.
+  * v1 = post-activation: out = relu(shortcut + residual).
+
+Modules compute in NCHW; the input is the NHWC batch permuted, which is
+already channels-last in memory.  Unit modules are named after slim and
+Flax (``block1/unit_1``) so the weight bridge (``convert.py``) is a name
+map.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Sequence
+
+import torch.nn.functional as F
+from torch import nn
+
+BN_EPS = 1e-5
+
+
+def feature_size(image_size: int) -> int:
+    """Output spatial size of the stride-32 tail (five ceil-div-2 stages:
+    conv1, pool, block1, block2, block3; block4 has stride 1)."""
+    s = image_size
+    for _ in range(5):
+        s = -(-s // 2)
+    return s
+
+
+def _bn(channels: int, bn_momentum: float) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=1.0 - bn_momentum)
+
+
+def conv2d_same(x, conv: nn.Conv2d, kernel_size: int, stride: int):
+    """Apply ``conv`` with slim conv2d_same padding."""
+    if stride == 1:
+        return conv(x)          # conv built with symmetric "same" padding
+    pad_total = kernel_size - 1
+    pad_beg = pad_total // 2
+    pad_end = pad_total - pad_beg
+    return conv(F.pad(x, (pad_beg, pad_end, pad_beg, pad_end)))
+
+
+def max_pool_same(x, kernel_size: int = 3, stride: int = 2):
+    """TF "SAME" max-pool: pad (-inf) so that out = ceil(in / stride), with
+    the odd cell of padding at the end."""
+    pads = []
+    for size in (x.shape[3], x.shape[2]):        # F.pad wants W first
+        out = -(-size // stride)
+        total = max((out - 1) * stride + kernel_size - size, 0)
+        pads += [total // 2, total - total // 2]
+    x = F.pad(x, pads, value=float("-inf"))
+    return F.max_pool2d(x, kernel_size, stride)
+
+
+class Bottleneck(nn.Module):
+    """Slim bottleneck_v1: 1x1 -> 3x3(stride) -> 1x1, projection shortcut."""
+
+    def __init__(self, depth_in: int, depth: int, depth_bottleneck: int,
+                 stride: int, bn_momentum: float = 0.997):
+        super().__init__()
+        self.stride = stride
+        self.identity = depth_in == depth
+        if not self.identity:
+            self.shortcut = nn.Conv2d(depth_in, depth, 1, stride=stride,
+                                      bias=False)
+            self.shortcut_bn = _bn(depth, bn_momentum)
+        self.conv1 = nn.Conv2d(depth_in, depth_bottleneck, 1, bias=False)
+        self.conv1_bn = _bn(depth_bottleneck, bn_momentum)
+        self.conv2 = nn.Conv2d(depth_bottleneck, depth_bottleneck, 3,
+                               stride=stride, bias=False,
+                               padding=1 if stride == 1 else 0)
+        self.conv2_bn = _bn(depth_bottleneck, bn_momentum)
+        self.conv3 = nn.Conv2d(depth_bottleneck, depth, 1, bias=False)
+        self.conv3_bn = _bn(depth, bn_momentum)
+
+    def forward(self, x):
+        if self.identity:
+            shortcut = x if self.stride == 1 else x[:, :, ::self.stride,
+                                                    ::self.stride]
+        else:
+            shortcut = self.shortcut_bn(self.shortcut(x))
+        r = F.relu(self.conv1_bn(self.conv1(x)))
+        r = F.relu(self.conv2_bn(conv2d_same(r, self.conv2, 3, self.stride)))
+        r = self.conv3_bn(self.conv3(r))
+        return F.relu(shortcut + r)
+
+
+class ResNetV1(nn.Module):
+    """Slim resnet_v1_{50,101,152}: root conv+pool, 4 bottleneck blocks.
+
+    ``forward`` takes NCHW and returns the pre-pool NCHW feature map
+    (B, 2048, h, w) when ``global_pool=False``, else (B, 2048).
+    """
+
+    def __init__(self, stage_sizes: Sequence[int],
+                 stage_strides: Sequence[int] = (2, 2, 2, 1),
+                 bn_momentum: float = 0.997):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, bias=False)
+        self.conv1_bn = _bn(64, bn_momentum)
+        self.unit_names = []
+        depth_in = 64
+        for b, (num_units, block_stride) in enumerate(
+                zip(stage_sizes, stage_strides), start=1):
+            base_depth = 64 * (2 ** (b - 1))
+            for u in range(1, num_units + 1):
+                # slim: the stride applies to the LAST unit of the block
+                unit_stride = block_stride if u == num_units else 1
+                name = f"block{b}/unit_{u}"
+                self.add_module(name, Bottleneck(
+                    depth_in, base_depth * 4, base_depth, unit_stride,
+                    bn_momentum))
+                self.unit_names.append(name)
+                depth_in = base_depth * 4
+
+    def forward(self, x, global_pool: bool = True):
+        x = conv2d_same(x, self.conv1, 7, 2)
+        x = F.relu(self.conv1_bn(x))
+        x = max_pool_same(x)
+        for name in self.unit_names:
+            x = self._modules[name](x)
+        if global_pool:
+            x = x.mean(dim=(2, 3))
+        return x
+
+
+resnet_v1_50 = functools.partial(ResNetV1, stage_sizes=(3, 4, 6, 3))
+resnet_v1_101 = functools.partial(ResNetV1, stage_sizes=(3, 4, 23, 3))
+resnet_v1_152 = functools.partial(ResNetV1, stage_sizes=(3, 8, 36, 3))
+
+BACKBONES = {
+    "resnet_v1_50": resnet_v1_50,
+    "resnet_v1_101": resnet_v1_101,
+    "resnet_v1_152": resnet_v1_152,
+}
