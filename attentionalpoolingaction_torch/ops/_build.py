@@ -26,7 +26,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-build_log = ""          # what nvcc printed (registers, shared memory, spills)
+build_log = ""  # what nvcc printed (registers, shared memory, spills);
+                # kept beside the library as <name>.log and read back
 
 
 def _nvcc() -> str:
@@ -51,7 +52,9 @@ def build() -> Path:
     """Compile the kernels unless a build of this exact source exists."""
     global build_log
     out = library_path()
+    log = out.with_suffix(".log")
     if out.exists():
+        build_log = log.read_text() if log.exists() else ""
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -61,16 +64,25 @@ def build() -> Path:
     build_log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {SOURCE}:\n{build_log}")
+    # the log first: a loader that finds the library finds its log too
+    log_tmp = log.with_suffix(f".{os.getpid()}.logtmp")
+    log_tmp.write_text(build_log)
+    os.replace(log_tmp, log)
     os.replace(tmp, out)      # atomic: a concurrent loader sees all or none
     return out
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.apa_saliency_summary.argtypes = [p, i, p, p, p, p, i, i, i, i, p]
+    ll = ctypes.c_longlong
+    lib.apa_saliency_summary.argtypes = [p, i, p, p, p, p, i, i, i, i,
+                                         i, i, i, ll, p]
     lib.apa_saliency_summary.restype = i
-    lib.apa_project_logits.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    lib.apa_project_logits.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                       i, i, i, i, ll, p]
     lib.apa_project_logits.restype = i
+    lib.apa_last_active_clusters.argtypes = []
+    lib.apa_last_active_clusters.restype = i
     lib.apa_error_string.argtypes = [i]
     lib.apa_error_string.restype = ctypes.c_char_p
     return lib

@@ -21,6 +21,7 @@ raises (the backward is a later port).
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 
 import torch
@@ -30,8 +31,22 @@ from attentionalpoolingaction_torch.ops import _build
 MAX_RANK = 8
 # shared memory a block may take on an H100 (227 KB)
 _MAX_SMEM_BYTES = 232_448
-_PROJ_IMAGES_PER_BLOCK = 4      # APA_PROJ_BT in csrc/attn_pool.cu
-_PROJ_WARPS = 32                # APA_PROJ_WARPS in csrc/attn_pool.cu
+# what a CTA of a saliency cluster may take to keep X's slice resident: half
+# an SM with its 1 KB system reservation, so two CTAs share an SM.  Above
+# it each CTA of a 16-CTA cluster needs an SM of its own, fewer clusters fit
+# the card at once (cudaOccupancyMaxActiveClusters), and 8 images take two
+# waves.
+_RESIDENT_SMEM_BYTES = 232_448 // 2 - 1024
+_SMS = 132                      # SMs on an H100 SXM
+_CLUSTERS = (1, 2, 4, 8, 16)    # cluster sizes; 16 is non-portable
+# constants of csrc/attn_pool.cu
+_SAL_THREADS = 256              # APA_SAL_THREADS
+_SAL_MIN_R2 = 4                 # phase-2 row classes a resident CTA holds
+_PROJ_WARPS = 8                 # APA_PROJ_WARPS
+_PROJ_COLS = 32                 # APA_PROJ_COLS
+_PROJ_STAGE = 32                # APA_PROJ_STAGE
+_PROJ_AROW = 36                 # APA_PROJ_AROW
+_PROJ_MAX_BT = 32               # the longest image tile the kernel takes
 
 _X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -87,7 +102,8 @@ def _check_cuda_operands(x: torch.Tensor, *others: torch.Tensor) -> None:
                f"operands on different devices: {t.device} and {x.device}")
         _check(t.is_contiguous(), "the kernels take contiguous tensors")
     _check(x.data_ptr() % 16 == 0,
-           "x must be 16-byte aligned for the kernel's vector loads")
+           "operands must be 16-byte aligned for the kernels' 16-byte "
+           "accesses")
 
 
 def _raise_if(err: int, what: str) -> None:
@@ -105,6 +121,151 @@ def _check_no_grad(*tensors: torch.Tensor) -> None:
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+# -- launch plans --------------------------------------------------------------
+#
+# Plain functions of the shapes, so that the CPU tests reach them; the C
+# entry points check each plan against the kernel's own layout.
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _align16(nbytes: int) -> int:
+    return _ceil(nbytes, 16) * 16
+
+
+def _fill_ctas(sms: int) -> int:
+    """CTAs that count as filling the card: one on every other SM.  More,
+    smaller CTAs bought nothing on the H100: each adds its share of the
+    cluster's barriers and exchange (PERF.md, PR 2)."""
+    return sms // 2
+
+
+@dataclasses.dataclass(frozen=True)
+class SaliencyPlan:
+    cluster: int      # CTAs an image, each owning f_slice columns of F
+    f_slice: int
+    path: str         # "resident": X read from HBM once; "l2_reread"
+    r2: int           # row classes of phase 2, met in shared memory
+    smem_bytes: int
+    grid: int         # CTAs: B * cluster
+
+
+def _lane_groups(p: int, vec: int) -> int:
+    """16-byte column groups a lane owns in phase 1 (``lane_groups`` in
+    csrc/attn_pool.cu): the most of 4, 2, 1 whose sal_w fits 64
+    registers."""
+    return next(j for j in (4, 2, 1) if 64 // (p * vec) >= j or j == 1)
+
+
+def _saliency_smem(n, fs, p, itemsize, resident, r2) -> int:
+    return ((_align16(n * fs * itemsize) if resident else 0)
+            + _align16(2 * p * n * 4) + (r2 * p * fs * 4 if r2 > 1 else 0))
+
+
+def _saliency_r2(n, fs, p, itemsize, resident, vec) -> int:
+    """Most row classes phase 2 can use in the CTA's shared memory; 0 if
+    the CTA does not fit.  Where X's slice is resident the CTA takes at
+    most half an SM and must hold _SAL_MIN_R2 classes (or all the threads
+    give): phase 2 with fewer is slower than the L2 re-read path."""
+    most = _SAL_THREADS // (fs // vec)
+    if resident:
+        budget, least = _RESIDENT_SMEM_BYTES, min(_SAL_MIN_R2, most)
+    else:
+        budget, least = _MAX_SMEM_BYTES, 1
+    base = _saliency_smem(n, fs, p, itemsize, resident, 1)
+    r2 = min(most, (budget - base) // (p * fs * 4)) if base <= budget else 0
+    if r2 < least:
+        return 1 if least == 1 and base <= budget else 0
+    return r2
+
+
+def saliency_plan(b: int, n: int, f: int, p: int, x_dtype: torch.dtype,
+                  sms: int = _SMS) -> SaliencyPlan:
+    """Cluster size, F slice, path, row chunks, phase-2 row classes and
+    shared memory of a ``saliency_summary`` launch.
+
+    The cluster is the smallest whose B * S CTAs fill the card (or the
+    largest); a larger one where the X slice, with room for phase 2, would
+    not fit in half an SM's shared memory.  Only where no cluster fits it
+    does the plan take the path whose phase 2 reads X again from L2."""
+    itemsize = x_dtype.itemsize
+    vec = 16 // itemsize
+    max_slice = 32 * _lane_groups(p, vec) * vec
+    sizes = [s for s in _CLUSTERS if f % (8 * s) == 0 and f // s <= max_slice]
+    _check(bool(sizes), f"F={f} needs a slice of at most {max_slice} columns "
+           f"at rank {p} and a multiple of 8 in each of at most 16 CTAs")
+    filled = [s for s in sizes if b * s >= _fill_ctas(sms)]
+    want = filled[0] if filled else sizes[-1]
+    for resident in (True, False):
+        for s in sizes:
+            if s < want:
+                continue
+            fs = f // s
+            r2 = _saliency_r2(n, fs, p, itemsize, resident, vec)
+            if r2:
+                return SaliencyPlan(
+                    cluster=s, f_slice=fs,
+                    path="resident" if resident else "l2_reread",
+                    r2=r2,
+                    smem_bytes=_saliency_smem(n, fs, p, itemsize, resident,
+                                              r2),
+                    grid=b * s)
+    raise ValueError(f"s of {p}x{n} exceeds a CTA's shared memory")
+
+
+@dataclasses.dataclass(frozen=True)
+class ProjectPlan:
+    k_split: int      # CTAs a cluster, along K = P * F
+    k_rows: int       # rows of K a CTA owns, a multiple of 32 (the last
+                      # CTA may own fewer)
+    b_tile: int       # images a pass over A: 1, 2, 4, ..., 32
+    a_resident: bool  # the CTA's slab of A stays in shared memory (B
+                      # spans several tiles); else A streams to registers
+    smem_bytes: int
+    grid: tuple       # (k_split, class tiles of 32)
+
+
+def _project_smem(kr: int, bt: int, p: int, a_resident: bool) -> int:
+    return ((kr * _PROJ_AROW if a_resident else 0) + bt * kr
+            + _PROJ_WARPS * bt * _PROJ_COLS + bt * _PROJ_COLS + bt * p
+            + _PROJ_COLS * p) * 4
+
+
+def project_plan(b: int, n: int, f: int, c: int, p: int) -> ProjectPlan:
+    """K split, rows a CTA, image tile, residence of A and shared memory of a
+    ``project_logits`` launch.  The split is the largest (up to 16) that
+    leaves every CTA rows of K.  The image tile is the power of two
+    that covers B, up to 32, halved until shared memory holds it.  Where B
+    fits one tile A streams from HBM into registers; where it needs more
+    the CTA keeps its whole slab of A in shared memory, so A is read once
+    whatever B."""
+    k = p * f
+    tiles = _ceil(c, _PROJ_COLS)
+    _check(tiles <= 65535, f"C={c} exceeds the projection kernel's grid")
+    plans = []
+    for ks in _CLUSTERS:
+        kr = _ceil(_ceil(k, ks), _PROJ_STAGE) * _PROJ_STAGE
+        if (ks - 1) * kr >= k:      # a CTA without rows
+            break
+        bt = min(_PROJ_MAX_BT, 1 << max(0, b - 1).bit_length())
+        while True:
+            smem = _project_smem(kr, bt, p, b > bt)
+            if smem <= _MAX_SMEM_BYTES or bt == 1:
+                break
+            bt //= 2
+        if smem <= _MAX_SMEM_BYTES:
+            plans.append(ProjectPlan(ks, kr, bt, b > bt, smem, (ks, tiles)))
+    _check(bool(plans), f"K={k} exceeds the projection kernel's shared memory")
+    # the fewest passes over the images, then the largest split: every CTA
+    # more has more of A in flight (PERF.md, PR 2)
+    return min(plans, key=lambda pl: (_ceil(b, pl.b_tile), -pl.k_split))
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # -- wrappers ----------------------------------------------------------------
@@ -126,8 +287,8 @@ def saliency_summary(x, sal_w, sal_b):
     _check_cuda_operands(x, sal_w, sal_b)
     _check_no_grad(x, sal_w, sal_b)
     _check(f % 8 == 0, f"F={f} must be a multiple of 8 (16-byte loads)")
-    _check((f * p + p * n) * 4 <= _MAX_SMEM_BYTES,
-           f"sal_w and s ({f}x{p}, {p}x{n}) exceed a block's shared memory")
+    _check(n >= 1, "x has no positions")
+    plan = saliency_plan(b, n, f, p, x.dtype, _sms(x.device))
     v = torch.empty((b, p, f), dtype=torch.float32, device=x.device)
     s = torch.empty((b, p, n), dtype=torch.float32, device=x.device)
     if b == 0:
@@ -137,7 +298,8 @@ def saliency_summary(x, sal_w, sal_b):
         err = lib.apa_saliency_summary(
             x.data_ptr(), _X_DTYPES[x.dtype], sal_w.data_ptr(),
             sal_b.data_ptr(), v.data_ptr(), s.data_ptr(), b, n, f, p,
-            _stream())
+            plan.cluster, plan.r2, plan.path == "resident",
+            plan.smem_bytes, _stream())
     _raise_if(err, "saliency_summary")
     _count("saliency_summary")
     return v, s
@@ -165,13 +327,11 @@ def project_logits(v, s, w_pfc, attn_b):
         return project_logits_plain(v, s, w_pfc, attn_b)
     _check(v.is_cuda, f"no kernel for device {v.device}")
     _check_cuda_operands(v, s, w_pfc, attn_b)
+    _check(w_pfc.data_ptr() % 16 == 0,
+           "w_pfc must be 16-byte aligned for the kernel's 16-byte copies")
     _check_no_grad(v, s, w_pfc, attn_b)
-    tile = max(_PROJ_IMAGES_PER_BLOCK * f,
-               _PROJ_WARPS * _PROJ_IMAGES_PER_BLOCK * 32)
-    _check((_PROJ_IMAGES_PER_BLOCK * MAX_RANK + tile) * 4 <= _MAX_SMEM_BYTES,
-           f"F={f} exceeds the projection kernel's shared memory")
-    _check(b <= 65535 * _PROJ_IMAGES_PER_BLOCK,
-           f"B={b} exceeds the projection kernel's grid")
+    _check(n >= 1, "s has no positions")
+    plan = project_plan(b, n, f, c, p)
     logits = torch.empty((b, c), dtype=torch.float32, device=v.device)
     if b == 0:
         return logits
@@ -179,7 +339,8 @@ def project_logits(v, s, w_pfc, attn_b):
     with torch.cuda.device(v.device):
         err = lib.apa_project_logits(
             v.data_ptr(), s.data_ptr(), w_pfc.data_ptr(), attn_b.data_ptr(),
-            logits.data_ptr(), b, n, f, c, p, _stream())
+            logits.data_ptr(), b, n, f, c, p, plan.k_split, plan.k_rows,
+            plan.b_tile, plan.a_resident, plan.smem_bytes, _stream())
     _raise_if(err, "project_logits")
     _count("project_logits")
     return logits

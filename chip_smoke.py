@@ -6,12 +6,16 @@
 Phases; any failure raises and the process exits non-zero:
 
 1. Device: a CUDA card must be present; prints its name and power limit.
-2. Kernels: builds csrc/attn_pool.cu with nvcc (sm_90a) and holds each
-   kernel against its plain PyTorch version at the serving shapes
-   (B in {1, 8, 32}, N=49, F=2048, C=393, P=1, float32 and bfloat16 X)
-   and at rank 5 (N=196, C=600 and N=225, C=393).  Prints, per case, the
-   error, the kernel's, the plain version's and cuBLAS's times, and the
-   byte bound.
+2. Kernels: builds csrc/attn_pool.cu with nvcc (sm_90a), prints its
+   registers and spills, and holds each kernel against its plain PyTorch
+   version at the serving shapes (B in {1, 8, 32}, N=49, F=2048, C=393,
+   P=1), at rank 5 (B=8; N=196, C=600 and N=225, C=393) and at the
+   hmdb51_clip8 clip (B=8, N=392, C=51, P=1), each with float32 and
+   bfloat16 X.  Checks that two launches give the same bits.  Prints, per
+   case, each kernel's launch plan, and for each kernel and for the
+   fused_pool_logits pair the error, the kernel's, the plain version's
+   and the library composition's times, the bound and the share of it,
+   beside the timer's own floor.
 3. Serving: the ``mpii_rank1_224`` Predictor (ResNet-101, 393 classes,
    rank 1, 224 px, float32, buckets 1/8/32) with seeded random weights in
    the Flax layout, carried across by the weight bridge.  12 concurrent
@@ -149,6 +153,13 @@ def library_project(v, s, w_pfc, attn_b):
                        w_pfc.reshape(-1, c))
 
 
+def library_fused(x, sal_w, sal_b, w_pfc, attn_b):
+    """The whole of fused_pool_logits by the library calls above; v goes
+    to float32 for the projection, as the kernels keep it."""
+    v, s = library_saliency(x, sal_w, sal_b)
+    return library_project(v.float(), s, w_pfc, attn_b)
+
+
 def phase_kernels(timer):
     t0 = time.monotonic()
     _build.load()
@@ -161,44 +172,81 @@ def phase_kernels(timer):
     log("torch.backends.cuda.matmul.allow_tf32 = False (plain and library "
         "versions in full float32)")
 
+    log(f"ColdTimer floor (an empty kernel between its events): "
+        f"{timer(lambda: torch.cuda._sleep(1)):.4f} ms")
     cases = [(b, 49, 393, 1, dt) for dt in (torch.float32, torch.bfloat16)
              for b in (1, 8, 32)]
     cases += [(8, n, c, 5, dt) for n, c in ((196, 600), (225, 393))
               for dt in (torch.float32, torch.bfloat16)]
+    # the hmdb51_clip8 clip: 8 frames of 7x7 positions folded into N
+    cases += [(8, 392, 51, 1, dt) for dt in (torch.float32, torch.bfloat16)]
     rows = []
     log("case                        kernel            rel_err   "
-        "ms       plain_ms  lib_ms    bound_ms")
+        "ms       plain_ms  lib_ms    bound_ms  share")
     for i, (b, n, c, p, dt) in enumerate(cases):
         a = make_case(b, n, c, p, dt, seed=i)
         w_pfc = apc.attn_w_pfc(a["attn_w"])
-        x, sw, sb = a["x"], a["sal_w"], a["sal_b"]
+        x, sw, sb, ab = a["x"], a["sal_w"], a["sal_b"], a["attn_b"]
         f = x.shape[2]
+        sp = apc.saliency_plan(b, n, f, p, dt)
+        pp = apc.project_plan(b, n, f, c, p)
         with torch.no_grad():
             v, s = apc.saliency_summary(x, sw, sb)
+            sal_clusters = _build.load().apa_last_active_clusters()
             pv, ps = apc.saliency_summary_plain(x, sw, sb)
-            plog = apc.project_logits_plain(pv, ps, w_pfc, a["attn_b"])
+            plog = apc.project_logits_plain(pv, ps, w_pfc, ab)
             # the projection runs on the plain summary, so that its error
             # is its own
-            logits = apc.project_logits(pv, ps, w_pfc, a["attn_b"])
+            logits = apc.project_logits(pv, ps, w_pfc, ab)
+            proj_clusters = _build.load().apa_last_active_clusters()
+        log(f"plans: saliency cluster {sp.cluster} x {sp.f_slice} columns, "
+            f"{sp.path}, r2 {sp.r2}, {sp.smem_bytes} B, {sp.grid} CTAs, "
+            f"{sal_clusters} clusters at once; projection K split "
+            f"{pp.k_split} x {pp.k_rows} rows, image tile {pp.b_tile}, "
+            f"A {'resident' if pp.a_resident else 'streamed'}, "
+            f"{pp.smem_bytes} B, grid {pp.grid}, {proj_clusters} clusters "
+            f"at once")
+        with torch.no_grad():
+            fused = apc.fused_pool_logits(x, a["attn_w"], ab, sw, sb,
+                                          w_pfc=w_pfc)
+            again = apc.fused_pool_logits(x, a["attn_w"], ab, sw, sb,
+                                          w_pfc=w_pfc)
             torch.cuda.synchronize()
+            if not all(torch.equal(u, w) for u, w in zip(fused, again)):
+                raise AssertionError(
+                    f"two launches at B{b} N{n} C{c} P{p} {dt} gave "
+                    f"different bits")
             errs = {"saliency_summary": max(rel_err(v, pv), rel_err(s, ps)),
-                    "project_logits": rel_err(logits, plog)}
+                    "project_logits": rel_err(logits, plog),
+                    "fused_pool_logits": max(
+                        rel_err(fused[0], plog), rel_err(fused[1], pv),
+                        rel_err(fused[2], ps))}
             xbytes = x.numel() * x.element_size()
+            sal_bytes = xbytes + 4 * (f * p + p + b * p * (f + n))
+            sal_flops = 4 * b * n * f * p
+            proj_bytes = 4 * (b * p * (f + n) + p * f * c + c * p + b * c)
+            proj_flops = 2 * b * p * f * c + b * p * n + 2 * b * c * p
             timings = {
                 "saliency_summary": (
                     lambda: apc.saliency_summary(x, sw, sb),
                     lambda: apc.saliency_summary_plain(x, sw, sb),
                     lambda: library_saliency(x, sw, sb),
-                    bound_ms(xbytes + 4 * (f * p + p + b * p * (f + n)),
-                             4 * b * n * f * p)),
+                    bound_ms(sal_bytes, sal_flops)),
                 "project_logits": (
-                    lambda: apc.project_logits(v, s, w_pfc, a["attn_b"]),
-                    lambda: apc.project_logits_plain(v, s, w_pfc,
-                                                     a["attn_b"]),
-                    lambda: library_project(v, s, w_pfc, a["attn_b"]),
-                    bound_ms(4 * (b * p * (f + n) + p * f * c + c * p
-                                  + b * c),
-                             2 * b * p * f * c + b * p * n + 2 * b * c * p)),
+                    lambda: apc.project_logits(v, s, w_pfc, ab),
+                    lambda: apc.project_logits_plain(v, s, w_pfc, ab),
+                    lambda: library_project(v, s, w_pfc, ab),
+                    bound_ms(proj_bytes, proj_flops)),
+                # the pair as the head calls it; v and s count once, as
+                # outputs, and A once
+                "fused_pool_logits": (
+                    lambda: apc.fused_pool_logits(x, a["attn_w"], ab, sw, sb,
+                                                  w_pfc=w_pfc),
+                    lambda: apc.project_logits_plain(
+                        *apc.saliency_summary_plain(x, sw, sb), w_pfc, ab),
+                    lambda: library_fused(x, sw, sb, w_pfc, ab),
+                    bound_ms(sal_bytes + 4 * (p * f * c + c * p + b * c),
+                             sal_flops + proj_flops)),
             }
             for name, (kern, plain, lib, (bms, by)) in timings.items():
                 rel, absd = errs[name]
@@ -208,11 +256,12 @@ def phase_kernels(timer):
                        "ms": timer(kern), "plain_ms": timer(plain),
                        "library_ms": timer(lib), "bound_ms": bms,
                        "bound_by": by}
+                row["bound_share"] = bms / row["ms"]
                 rows.append(row)
                 log(f"B{b:<3} N{n:<4} C{c:<4} P{p} {row['case']['x']:<9}"
                     f"{name:<18}{rel:<10.2e}{row['ms']:<9.4f}"
                     f"{row['plain_ms']:<10.4f}{row['library_ms']:<10.4f}"
-                    f"{bms:.4f}")
+                    f"{bms:<10.4f}{row['bound_share']:.1%}")
                 if not rel < KERNEL_RTOL:
                     raise AssertionError(
                         f"{name} disagrees with its plain version at "
@@ -374,7 +423,8 @@ def main():
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
-            "library_ms": main_row["library_ms"]})
+            "library_ms": main_row["library_ms"],
+            "bound_share": main_row["bound_share"]})
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -142,18 +142,32 @@ def test_cpu_path_neither_builds_nor_counts():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b, n, c, p", [(1, 49, 393, 1), (32, 49, 393, 1),
-                                        (3, 196, 600, 5)])
-def test_kernels_match_plain_on_card(x_dtype, b, n, c, p):
+@pytest.mark.parametrize("b, n, f, c, p", [
+    (1, 49, 2048, 393, 1), (32, 49, 2048, 393, 1), (3, 196, 2048, 600, 5),
+    # ragged and edge shapes: B=5, C=600, N=225 at P=8, the hmdb51_clip8
+    # clip (N=392), N=1000 (the L2 re-read path), F=256 at a 16-CTA cluster,
+    # B=33 (two image tiles on a slab of A kept in shared memory)
+    (5, 225, 2048, 600, 8), (8, 392, 2048, 51, 1), (2, 1000, 2048, 51, 1),
+    (1, 49, 256, 11, 1), (33, 49, 2048, 393, 1)])
+def test_kernels_match_plain_on_card(x_dtype, b, n, f, c, p):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    t = torch_args(make_inputs(b + p, b=b, n=n, f=2048, c=c, p=p), x_dtype)
+    t = torch_args(make_inputs(b + p, b=b, n=n, f=f, c=c, p=p), x_dtype)
     t = {k: v.cuda() for k, v in t.items()}
+    if n == 1000:
+        assert apc.saliency_plan(b, n, f, p, x_dtype).path == "l2_reread"
+    if f == 256:
+        assert apc.saliency_plan(b, n, f, p, x_dtype).cluster == 16
+    if b == 33:
+        assert apc.project_plan(b, n, f, c, p).a_resident
     apc.reset_launch_counts()
     with torch.no_grad():
         logits, v, s = apc.fused_pool_logits(**t)
+        again = apc.fused_pool_logits(**t)
     torch.cuda.synchronize()
-    assert apc.launch_counts == {"saliency_summary": 1, "project_logits": 1}
+    assert apc.launch_counts == {"saliency_summary": 2, "project_logits": 2}
+    for first, second in zip((logits, v, s), again):
+        assert torch.equal(first, second)      # the same bits, run to run
     pv, ps = apc.saliency_summary_plain(t["x"], t["sal_w"], t["sal_b"])
     pl = apc.project_logits_plain(pv, ps, apc.attn_w_pfc(t["attn_w"]),
                                   t["attn_b"])
