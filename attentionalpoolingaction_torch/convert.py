@@ -13,7 +13,8 @@ The names follow the Flax layout of the JAX package (``models/resnet.py``;
     params/pose_head/pose_conv/{kernel, bias}   -> pose_head.pose_conv.{weight, bias}
 
 A key that maps to nothing, or a parameter of the model that no key fills,
-raises.
+raises.  Trees shaped like ``params`` (optimizer momentum, a parameter
+EMA) map by the same rules: ``flax_to_state_dict(tree)``.
 """
 
 from __future__ import annotations
@@ -73,10 +74,11 @@ def _map(coll: str, path: tuple, value: np.ndarray):
     raise KeyError(f"no port parameter for {where}")
 
 
-def flax_to_state_dict(params: Mapping, batch_stats: Mapping
+def flax_to_state_dict(params: Mapping, batch_stats: Mapping | None = None
                        ) -> dict[str, torch.Tensor]:
     """The port's state dict (CPU float32 tensors) from Flax trees of
     arrays (anything ``np.asarray`` takes)."""
+    batch_stats = batch_stats or {}
     out = {}
     for coll, tree in (("params", params), ("batch_stats", batch_stats)):
         for path, value in _leaves(tree):
@@ -99,12 +101,16 @@ def load_flax_variables(model: torch.nn.Module, params: Mapping,
 
 def random_flax_variables(backbone: str, *, num_classes: int,
                           rank: int = 1, num_positions: int = 49,
+                          pooling: str = "attention", num_joints: int = 16,
                           seed: int = 0) -> tuple[dict, dict]:
     """Random (params, batch_stats) of an attention-pooling model in the
     Flax layout, from a numpy seed: fan-in-scaled convs, BN scale 1 and
-    bias 0 with running mean 0 and var 1, and head weights of std
-    (n*f)^-1/2.  Stands in for a trained checkpoint where none is at
-    hand."""
+    bias 0 with running mean 0 and var 1, head weights of std (n*f)^-1/2,
+    and with ``pooling="pose_attention"`` the pose head's 1x1 conv
+    (``num_joints`` + 1 channels).  Stands in for a trained checkpoint
+    where none is at hand."""
+    if pooling not in ("attention", "pose_attention"):
+        raise ValueError(f"no random variables for pooling {pooling!r}")
     rng = np.random.default_rng(seed)
     f32 = np.float32
 
@@ -153,4 +159,9 @@ def random_flax_variables(backbone: str, *, num_classes: int,
         "sal_w": (rng.standard_normal((feat, rank)) * std).astype(f32),
         "sal_b": (rng.standard_normal(rank) * 0.01).astype(f32),
     }
-    return {"resnet": res_p, "head": head}, {"resnet": res_s}
+    params = {"resnet": res_p, "head": head}
+    if pooling == "pose_attention":
+        params["pose_head"] = {"pose_conv": {
+            "kernel": conv(1, 1, feat, num_joints + 1, gain=1.0),
+            "bias": np.zeros(num_joints + 1, f32)}}
+    return params, {"resnet": res_s}

@@ -4,6 +4,12 @@ Port of the JAX package's ``models/action_model.py``.
 images (NHWC) -> ResNet-v1 features -> {avg | attention | pose-attention}
 head -> ``out`` dict with ``logits`` (+ ``pose_heatmaps``, ``features``,
 and with ``return_maps`` ``attn_maps`` / ``saliency``), all NHWC.
+
+``model.train()`` is the JAX package's ``train=True``: batch norm
+normalizes with batch statistics and updates its running ones.  With
+``freeze_bn`` the batch norms stay in eval mode whatever ``train()`` says
+(the slim fine-tuning recipe); gradients still reach their scale and
+offset.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from attentionalpoolingaction_torch.models.heads import (
 )
 from attentionalpoolingaction_torch.models.resnet import (
     BACKBONES,
+    BatchNorm,
     feature_size,
 )
 
@@ -29,20 +36,34 @@ class ActionModel(nn.Module):
     def __init__(self, num_classes: int, backbone: str = "resnet_v1_101",
                  pooling: str = "attention", rank: int = 1,
                  num_joints: int = 16, bn_momentum: float = 0.997,
-                 image_size: int = 224):
+                 image_size: int = 224, freeze_bn: bool = False,
+                 generator: torch.Generator | None = None):
         super().__init__()
         if pooling not in POOLING_TYPES:
             raise ValueError(f"unknown pooling {pooling!r}")
         self.pooling = pooling
-        self.resnet = BACKBONES[backbone](bn_momentum=bn_momentum)
+        self.freeze_bn = freeze_bn
+        self.resnet = BACKBONES[backbone](bn_momentum=bn_momentum,
+                                          generator=generator)
         if pooling == "avg":
-            self.head = AveragePoolingHead(NUM_FEATURES, num_classes)
+            self.head = AveragePoolingHead(NUM_FEATURES, num_classes,
+                                           generator=generator)
         else:
             self.head = AttentionalPoolingHead(
                 NUM_FEATURES, num_classes, rank=rank,
-                num_positions=feature_size(image_size) ** 2)
+                num_positions=feature_size(image_size) ** 2,
+                generator=generator)
         if pooling == "pose_attention":
-            self.pose_head = PoseHead(NUM_FEATURES, num_joints)
+            self.pose_head = PoseHead(NUM_FEATURES, num_joints,
+                                      generator=generator)
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if self.freeze_bn:
+            for m in self.modules():
+                if isinstance(m, BatchNorm):
+                    m.eval()
+        return self
 
     def forward(self, images, return_maps: bool = False):
         # Video clips: a 5-D (B, T, H, W, C) batch runs the backbone per

@@ -13,9 +13,13 @@ from attentionalpoolingaction_torch.models.resnet import BACKBONES
 def get_model(backbone: str = "resnet_v1_101", *, num_classes: int,
               pooling: str = "attention", rank: int = 1,
               num_joints: int = 16, bn_momentum: float = 0.997,
-              image_size: int = 224, device=None) -> ActionModel:
+              image_size: int = 224, freeze_bn: bool = False,
+              generator: torch.Generator | None = None,
+              device=None) -> ActionModel:
     """An ActionModel in eval mode on ``device`` (default ``cuda``; raises
-    when there is no card and the caller did not ask for the CPU)."""
+    when there is no card and the caller did not ask for the CPU), its
+    weights drawn from ``generator`` as Flax draws them.  ``train()``
+    switches it to the training forward."""
     if backbone not in BACKBONES:
         raise ValueError(
             f"unknown backbone {backbone!r}; available: {sorted(BACKBONES)}")
@@ -28,5 +32,7 @@ def get_model(backbone: str = "resnet_v1_101", *, num_classes: int,
             num_joints=num_joints,
             bn_momentum=bn_momentum,
             image_size=image_size,
+            freeze_bn=freeze_bn,
+            generator=generator,
         )
     return model.eval()

@@ -12,8 +12,13 @@ Slim semantics reproduced here; each one breaks parity silently if lost:
   * Down-sampling sits on the *last* unit of each block, on its 3x3 conv
     and on the projection shortcut.  An identity shortcut subsamples with
     ``x[:, :, ::s, ::s]``.
-  * Batch norm: eps 1e-5, decay 0.997 (torch momentum 0.003); in eval mode
-    it uses the running statistics only.  Convs carry no bias.
+  * Batch norm (:class:`BatchNorm`): eps 1e-5, decay 0.997 (torch
+    momentum 0.003).  In train mode it normalizes with the batch mean and
+    the biased variance, and moves the running variance toward the biased
+    one too (``nn.BatchNorm2d`` moves it toward the unbiased one).  In
+    eval mode it uses the running statistics only.  Convs carry no bias.
+  * Init as Flax's: convs ``lecun_normal`` (:func:`lecun_normal_`), BN
+    scale 1, offset 0, running mean 0, variance 1.
   * v1 = post-activation: out = relu(shortcut + residual).
 
 Modules compute in NCHW; the input is the NHWC batch permuted, which is
@@ -27,10 +32,14 @@ from __future__ import annotations
 import functools
 from typing import Sequence
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
+# the std of a standard normal truncated to (-2, 2): Flax's variance_scaling
+# divides by it so that the truncated draw has the variance asked for
+_TRUNC_STD = 0.87962566103423978
 
 
 def feature_size(image_size: int) -> int:
@@ -42,8 +51,60 @@ def feature_size(image_size: int) -> int:
     return s
 
 
-def _bn(channels: int, bn_momentum: float) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=1.0 - bn_momentum)
+def truncated_normal(shape, std: float,
+                     generator: torch.Generator | None = None,
+                     device=None) -> torch.Tensor:
+    """A float32 normal of ``std`` truncated at two standard deviations
+    (Flax's ``truncated_normal(stddev)``), by redrawing what falls outside;
+    on the generator's device unless ``device`` is given."""
+    if device is None and generator is not None:
+        device = generator.device
+    t = torch.randn(shape, generator=generator, device=device)
+    # a model built under torch.device("meta") (to count its parameters)
+    # has no values to redraw
+    while not t.is_meta:
+        out = t.abs() >= 2.0
+        n = int(out.sum())
+        if not n:
+            break
+        t[out] = torch.randn(n, generator=generator, device=device)
+    return t.mul_(std)
+
+
+def lecun_normal_(weight: torch.Tensor,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+    """Flax's default kernel init for ``nn.Conv`` and ``nn.Dense``
+    (``lecun_normal``): variance 1/fan_in, truncated at two standard
+    deviations.  Drawn on the generator's device and copied in, so that one
+    seed gives the same weights on every device."""
+    std = weight[0].numel() ** -0.5 / _TRUNC_STD    # fan_in = I * kh * kw
+    t = truncated_normal(weight.shape, std, generator,
+                         None if generator is not None else weight.device)
+    with torch.no_grad():
+        return weight.copy_(t)
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with Flax's train-mode update: the running
+    statistics move toward the batch mean and the *biased* batch variance,
+    the two the batch was normalized with."""
+
+    def forward(self, x):
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        y, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            # invstd = (var + eps)^-1/2 of the biased variance
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(invstd.pow(-2).sub_(self.eps),
+                                   self.momentum)
+        return y
+
+
+def _bn(channels: int, bn_momentum: float) -> BatchNorm:
+    return BatchNorm(channels, eps=BN_EPS, momentum=1.0 - bn_momentum)
 
 
 def conv2d_same(x, conv: nn.Conv2d, kernel_size: int, stride: int):
@@ -105,12 +166,14 @@ class ResNetV1(nn.Module):
     """Slim resnet_v1_{50,101,152}: root conv+pool, 4 bottleneck blocks.
 
     ``forward`` takes NCHW and returns the pre-pool NCHW feature map
-    (B, 2048, h, w) when ``global_pool=False``, else (B, 2048).
+    (B, 2048, h, w) when ``global_pool=False``, else (B, 2048).  The convs
+    are drawn from ``generator`` as Flax draws them.
     """
 
     def __init__(self, stage_sizes: Sequence[int],
                  stage_strides: Sequence[int] = (2, 2, 2, 1),
-                 bn_momentum: float = 0.997):
+                 bn_momentum: float = 0.997,
+                 generator: torch.Generator | None = None):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, bias=False)
         self.conv1_bn = _bn(64, bn_momentum)
@@ -128,6 +191,9 @@ class ResNetV1(nn.Module):
                     bn_momentum))
                 self.unit_names.append(name)
                 depth_in = base_depth * 4
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                lecun_normal_(m.weight, generator)
 
     def forward(self, x, global_pool: bool = True):
         x = conv2d_same(x, self.conv1, 7, 2)

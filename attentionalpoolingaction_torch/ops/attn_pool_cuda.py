@@ -15,8 +15,14 @@ the kernel to the plain version.  The JAX package picks between its two
 Pallas kernels by a VMEM budget on ``attn_w``; on Hopper the projection
 is its own kernel whatever the size of ``attn_w``.
 
-The kernels are forward only: a CUDA call that would need a gradient
-raises (the backward is a later port).
+Gradients: :class:`AttentionalPoolFn` runs both kernels in its forward
+and saves ``x, attn_b, sal_w, v, s`` as the JAX package's custom VJP does
+(``_fused_fwd``), with the kernel's (P, F, C) copy of ``attn_w`` in place
+of ``attn_w``.  Its backward, :func:`fused_pool_backward`, mirrors
+``_fused_bwd``: einsums in float32, which the JAX package also computes
+outside any Pallas kernel, so it has no hand-written kernel.
+The wrappers themselves take no gradient: called directly under grad on
+CUDA tensors that need one, they raise.
 """
 
 from __future__ import annotations
@@ -115,8 +121,9 @@ def _raise_if(err: int, what: str) -> None:
 def _check_no_grad(*tensors: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            "the CUDA attentional pooling kernels are forward only; run "
-            "under torch.no_grad() or torch.inference_mode()")
+            "the CUDA attentional pooling kernels take no gradient "
+            "themselves; call attentional_pool_fused (AttentionalPoolFn) "
+            "to train, or run under torch.no_grad()")
 
 
 def _stream() -> int:
@@ -359,7 +366,63 @@ def fused_pool_logits(x, attn_w, attn_b, sal_w, sal_b, *, w_pfc=None):
     return project_logits(v, s, w_pfc, attn_b), v, s
 
 
+def fused_pool_backward(x, w_pfc, attn_b, sal_w, v, s, g):
+    """Gradients of the logits for their cotangent ``g`` (B, C):
+    ``(dx, d_attn_w, d_attn_b, d_sal_w, d_sal_b)`` from the saved summary
+    ``v`` and saliency ``s``.  The JAX package's ``_fused_bwd`` line for
+    line, in float32; ``dx`` comes back in ``x``'s dtype.  ``attn_w``
+    enters only through ``dv = g A``, which reads the kernel's (P, F, C)
+    copy ``w_pfc`` as one (B, C) @ (C, P F) product."""
+    xf = x.to(torch.float32)
+    ab = attn_b.to(torch.float32)
+    sw = sal_w.to(torch.float32)
+    g = g.to(torch.float32)
+    b, p, f = v.shape
+    ssum = s.sum(dim=2)                                     # (B, P)
+
+    d_attn_w = torch.einsum("bpf,bc->fcp", v, g)
+    d_attn_b = torch.einsum("bp,bc->cp", ssum, g)
+    dv = (g @ w_pfc.reshape(p * f, -1).t()).reshape(b, p, f)
+    dssum = g @ ab                                          # (B, P)
+
+    # v = sum_n x_n s_n  =>  dx += s dv ; ds = X dv
+    ds = torch.einsum("bnf,bpf->bpn", xf, dv) + dssum[:, :, None]
+    dx = torch.einsum("bpn,bpf->bnf", s, dv)
+    # s = X sal_w + beta  =>  dx += ds sal_w^T ; dsal_w = X^T ds
+    dx = dx + torch.einsum("bpn,fp->bnf", ds, sw)
+    d_sal_w = torch.einsum("bnf,bpn->fp", xf, ds)
+    d_sal_b = ds.sum(dim=(0, 2))
+    return dx.to(x.dtype), d_attn_w, d_attn_b, d_sal_w, d_sal_b
+
+
+class AttentionalPoolFn(torch.autograd.Function):
+    """Logits (B, C) of the fused pooling, differentiable in ``x`` and the
+    four weights: the forward is :func:`saliency_summary` then
+    :func:`project_logits` (the kernels on CUDA tensors), the backward
+    :func:`fused_pool_backward`.  ``w_pfc``, :func:`attn_w_pfc` of
+    ``attn_w``, takes no gradient; both passes read ``attn_w`` through it,
+    so ``attn_w`` is an input only to receive its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, attn_w, attn_b, sal_w, sal_b, w_pfc):
+        v, s = saliency_summary(x, sal_w, sal_b)
+        logits = project_logits(v, s, w_pfc, attn_b)
+        ctx.save_for_backward(x, w_pfc, attn_b, sal_w, v, s)
+        return logits
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        grads = fused_pool_backward(*ctx.saved_tensors, g)
+        return (*grads, None)
+
+
 def attentional_pool_fused(x, attn_w, attn_b, sal_w, sal_b, *, w_pfc=None):
-    """Drop-in for ``ops.attn_pool.attentional_pool``: (B, C) float32."""
-    return fused_pool_logits(x, attn_w, attn_b, sal_w, sal_b,
-                             w_pfc=w_pfc)[0]
+    """Drop-in for ``ops.attn_pool.attentional_pool``: (B, C) float32,
+    through :class:`AttentionalPoolFn` on every device.  ``w_pfc`` is as
+    for :func:`fused_pool_logits`."""
+    f, c, p = attn_w.shape
+    _check_f32("attn_w", attn_w, (f, c, p))
+    if w_pfc is None:
+        w_pfc = attn_w_pfc(attn_w.detach())
+    return AttentionalPoolFn.apply(x, attn_w, attn_b, sal_w, sal_b, w_pfc)

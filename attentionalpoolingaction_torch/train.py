@@ -1,22 +1,77 @@
-"""The model-building part of the JAX package's ``train.py``:
-``feature_size``, ``normalize_images`` and ``build_model``.  The loss,
-optimizer and train loop are a later port."""
+"""Training: losses, optimizer, train step and loop.  Port of the JAX
+package's ``train.py`` on one device.
+
+``create_state`` builds the model, its optimizer and the parameter EMA;
+``make_train_step`` gives the step: forward in train mode (batch norm
+moves its running statistics in place), the classification and pose
+losses, backward, global-norm clip, weight decay and SGD with momentum
+(or AdamW), then the EMA.  ``train`` runs the step over an iterator of
+numpy batches.  On a CUDA device the attentional pooling head runs the
+hand-written kernels in its forward (``ops/attn_pool_cuda.py``).
+
+Where optax and torch differ, the port follows optax:
+
+  * the clip scales by ``min(1, max_norm / |g|)`` (``clip_grad_norm_``
+    adds 1e-6 to the norm);
+  * the learning rate of a step is the schedule at the count of updates
+    made before it;
+  * torch SGD's momentum buffer (dampening 0) is optax's ``trace``.
+
+Not ported yet, and raising ``NotImplementedError``: a mesh
+(``mesh_shape`` over more than one device) and ``zero1``, checkpoints
+(``init_checkpoint``, a checkpoint manager, the SIGTERM stop),
+``bf16_backbone``, ``remat_units``, clips (``clip_frames`` > 1),
+``data_echo`` and the input pipeline (``train`` takes an iterator).
+"""
 
 from __future__ import annotations
 
+import dataclasses
+import logging
+import math
+import time
+from typing import Callable, Iterable, Iterator, Mapping
+
+import numpy as np
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 from attentionalpoolingaction_torch import config as config_lib
-from attentionalpoolingaction_torch.data.datasets import get_dataset
+from attentionalpoolingaction_torch.convert import load_flax_variables
+from attentionalpoolingaction_torch.data.datasets import (
+    DatasetSpec,
+    get_dataset,
+)
 from attentionalpoolingaction_torch.data.preprocessing import (
     B_MEAN,
     G_MEAN,
     R_MEAN,
 )
+from attentionalpoolingaction_torch.device import resolve_device
+from attentionalpoolingaction_torch.models.action_model import ActionModel
 from attentionalpoolingaction_torch.models.factory import get_model
 from attentionalpoolingaction_torch.models.resnet import feature_size
+from attentionalpoolingaction_torch.ops import heatmap as hm
 
-__all__ = ["build_model", "feature_size", "normalize_images"]
+__all__ = [
+    "TrainState", "apply_gradients", "batch_to_device", "build_model",
+    "classification_loss", "create_state", "decay_mask", "feature_size",
+    "make_learning_rate", "make_loss_fn", "make_optimizer",
+    "make_train_step", "normalize_images", "pose_targets", "train",
+]
+
+log = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int                     # updates made so far
+    model: ActionModel
+    optimizer: torch.optim.Optimizer
+    # parameter EMA by parameter name (config.ema_decay, slim's
+    # moving_average_decay); None when off
+    ema_params: dict[str, torch.Tensor] | None = None
 
 
 def normalize_images(images: torch.Tensor) -> torch.Tensor:
@@ -30,11 +85,12 @@ def normalize_images(images: torch.Tensor) -> torch.Tensor:
     return images.to(torch.float32) - mean
 
 
-def build_model(cfg: config_lib.TrainConfig, device=None):
+def build_model(cfg: config_lib.TrainConfig, device=None,
+                generator: torch.Generator | None = None) -> ActionModel:
     """The config's ActionModel in eval mode on ``device`` (default
-    ``cuda``).  The backbone runs in float32, which is what the
-    ``mpii_rank1_224`` preset asks for; ``bf16_backbone`` is not ported
-    yet and raises."""
+    ``cuda``), drawn from ``generator``.  The backbone runs in float32,
+    which is what the ``mpii_rank1_224`` preset asks for;
+    ``bf16_backbone`` is not ported yet and raises."""
     if cfg.bf16_backbone:
         raise NotImplementedError(
             "bf16_backbone is not ported yet; set bf16_backbone=False")
@@ -43,4 +99,310 @@ def build_model(cfg: config_lib.TrainConfig, device=None):
         cfg.backbone, num_classes=spec.num_classes, pooling=cfg.pooling,
         rank=cfg.rank, num_joints=spec.num_joints,
         bn_momentum=cfg.bn_momentum, image_size=cfg.image_size,
-        device=device)
+        freeze_bn=cfg.freeze_bn, generator=generator, device=device)
+
+
+# -- optimizer ----------------------------------------------------------------
+
+def make_learning_rate(cfg: config_lib.TrainConfig) -> Callable[[int], float]:
+    """``step -> lr``, the optax schedule of the JAX package: constant,
+    cosine (to 0 over ``num_steps - warmup_steps``) or slim's staircase
+    exponential decay, after a linear warmup from 0 when
+    ``warmup_steps``."""
+    lr = cfg.learning_rate
+    if cfg.lr_schedule == "constant":
+        def sched(step):
+            return lr
+    elif cfg.lr_schedule == "cosine":
+        decay_steps = cfg.num_steps - cfg.warmup_steps
+        if decay_steps <= 0:
+            raise ValueError("the cosine schedule needs num_steps > "
+                             "warmup_steps")
+
+        def sched(step):
+            frac = min(step, decay_steps) / decay_steps
+            return lr * 0.5 * (1.0 + math.cos(math.pi * frac))
+    elif cfg.lr_schedule == "exponential":
+        def sched(step):
+            return lr * cfg.lr_decay_rate ** (step // cfg.lr_decay_steps)
+    else:
+        raise ValueError(cfg.lr_schedule)
+    if not cfg.warmup_steps:
+        return sched
+    warmup, after = cfg.warmup_steps, sched
+
+    def warmed(step):
+        return lr * step / warmup if step < warmup else after(step - warmup)
+    return warmed
+
+
+def decay_mask(model: nn.Module) -> dict[str, bool]:
+    """Parameter name -> whether weight decay applies: conv and dense
+    kernels, ``attn_w`` and ``sal_w``; not BN scale and offset, biases,
+    ``attn_b`` or ``sal_b`` (the JAX package's ``_decay_mask``)."""
+    mask = {}
+    for mod_name, mod in model.named_modules():
+        for name, _ in mod.named_parameters(recurse=False):
+            key = f"{mod_name}.{name}" if mod_name else name
+            mask[key] = name in ("attn_w", "sal_w") or (
+                name == "weight" and isinstance(mod, (nn.Conv2d, nn.Linear)))
+    return mask
+
+
+def make_optimizer(cfg: config_lib.TrainConfig,
+                   model: nn.Module) -> torch.optim.Optimizer:
+    """SGD with momentum (or AdamW) over two groups: the decayed
+    parameters of :func:`decay_mask` and the rest.  The JAX package's
+    chain is clip -> decayed weights -> SGD: the step clips the gradients
+    before ``step()``, which adds the decay and then the momentum; it also
+    sets each step's learning rate."""
+    mask = decay_mask(model)
+    named = list(model.named_parameters())
+    groups = [
+        {"params": [p for n, p in named if mask[n]],
+         "weight_decay": cfg.weight_decay},
+        {"params": [p for n, p in named if not mask[n]],
+         "weight_decay": 0.0},
+    ]
+    if cfg.optimizer == "momentum":
+        return torch.optim.SGD(groups, lr=cfg.learning_rate,
+                               momentum=cfg.momentum, dampening=0.0)
+    if cfg.optimizer == "adamw":
+        return torch.optim.AdamW(groups, lr=cfg.learning_rate,
+                                 betas=(0.9, 0.999), eps=1e-8)
+    raise ValueError(cfg.optimizer)
+
+
+# -- losses -------------------------------------------------------------------
+
+def classification_loss(logits, labels, *, multi_label: bool,
+                        label_smoothing: float = 0.0, mask=None):
+    """Softmax cross entropy of integer labels (MPII, HMDB) or per-class
+    sigmoid cross entropy of multi-hot labels (HICO), averaged over the
+    batch or over the examples ``mask`` keeps."""
+    if multi_label:
+        per = F.binary_cross_entropy_with_logits(
+            logits, labels.to(logits.dtype), reduction="none").sum(-1)
+    else:
+        per = F.cross_entropy(logits, labels.long(), reduction="none",
+                              label_smoothing=label_smoothing)
+    if mask is not None:
+        mask = mask.to(per.dtype)
+        return (per * mask).sum() / mask.sum().clamp(min=1.0)
+    return per.mean()
+
+
+def pose_targets(batch: Mapping[str, torch.Tensor], *, image_size: int,
+                 sigma: float = 1.0):
+    """Pose heatmap targets (B, fs, fs, K + 1) at feature-map resolution,
+    with the preprocessing's crop and flip (``transform`` (B, 5): scale_y,
+    scale_x, offset_y, offset_x, flip) applied to the keypoints, and the
+    visibility (B, K + 1).  The last channel is the background,
+    1 - the strongest joint response."""
+    fs = feature_size(image_size)
+    stride = image_size / fs
+    t = batch["transform"]
+    kps, vis = hm.transform_keypoints(
+        batch["keypoints"], batch["visibility"], scale_y=t[:, 0],
+        scale_x=t[:, 1], offset_y=t[:, 2], offset_x=t[:, 3],
+        flip=t[:, 4] > 0, width=image_size)
+    heat = hm.render_gaussian_heatmaps(kps / stride, vis, fs, fs,
+                                       sigma=sigma)
+    bg = torch.clamp(1.0 - heat.amax(dim=-1, keepdim=True), 0.0, 1.0)
+    vis = vis.to(torch.float32)
+    return (torch.cat([heat, bg], dim=-1),
+            torch.cat([vis, torch.ones_like(vis[:, :1])], dim=-1))
+
+
+def make_loss_fn(spec: DatasetSpec, cfg: config_lib.TrainConfig):
+    """``loss_fn(model, batch, train) -> (total, metrics)``.  With
+    ``train`` the model runs in train mode (batch norm normalizes with the
+    batch statistics and moves its running ones, unless ``freeze_bn``);
+    metrics are detached device scalars ``loss/cls``, ``loss/pose`` (pose
+    attention on a dataset with pose) and ``loss/total``."""
+
+    def loss_fn(model: ActionModel, batch, train: bool):
+        model.train(train)
+        out = model(normalize_images(batch["image"]))
+        total = classification_loss(
+            out["logits"], batch["label"], multi_label=spec.multi_label,
+            label_smoothing=cfg.label_smoothing, mask=batch.get("mask"))
+        metrics = {"loss/cls": total.detach()}
+        if cfg.pooling == "pose_attention" and spec.has_pose:
+            target, visb = pose_targets(batch, image_size=cfg.image_size)
+            pose = hm.pose_l2_loss(out["pose_heatmaps"], target, visb)
+            metrics["loss/pose"] = pose.detach()
+            total = total + cfg.pose_loss_weight * pose
+        metrics["loss/total"] = total.detach()
+        return total, metrics
+
+    return loss_fn
+
+
+# -- state and step -----------------------------------------------------------
+
+def _check_ported(cfg: config_lib.TrainConfig) -> None:
+    if math.prod(cfg.mesh_shape or (1,)) > 1 or cfg.zero1:
+        raise NotImplementedError(
+            "training over a mesh (mesh_shape, zero1) is not ported yet; "
+            "the port trains on one device")
+    if cfg.remat_units:
+        raise NotImplementedError("remat_units is not ported yet")
+
+
+def create_state(cfg: config_lib.TrainConfig, *, device=None,
+                 variables: tuple[Mapping, Mapping] | None = None
+                 ) -> tuple[TrainState, DatasetSpec]:
+    """The train state on ``device`` (default ``cuda``) and the dataset.
+    The weights are drawn as Flax draws them from ``cfg.seed``, through
+    an explicit ``torch.Generator``, or come from ``variables``, Flax-layout
+    ``(params, batch_stats)`` arrays carried across by the weight bridge.
+    ``init_checkpoint`` is not ported yet and raises."""
+    if cfg.init_checkpoint:
+        raise NotImplementedError(
+            "init_checkpoint is not ported yet (checkpoints); pass "
+            "variables= to start from Flax-layout arrays")
+    spec = get_dataset(cfg.dataset)
+    generator = torch.Generator().manual_seed(cfg.seed)
+    model = build_model(cfg, device=device, generator=generator)
+    if variables is not None:
+        load_flax_variables(model, *variables)
+    elif cfg.freeze_bn:
+        log.warning(
+            "freeze_bn=True with no initial variables: BN will normalize "
+            "with init-value running stats")
+    ema = ({n: p.detach().clone() for n, p in model.named_parameters()}
+           if cfg.ema_decay else None)
+    return TrainState(step=0, model=model,
+                      optimizer=make_optimizer(cfg, model),
+                      ema_params=ema), spec
+
+
+def apply_gradients(state: TrainState, cfg: config_lib.TrainConfig,
+                    schedule: Callable[[int], float]) -> torch.Tensor:
+    """One update of ``state`` in place from the gradients in the
+    parameters' ``.grad``, in the JAX package's order: global-norm clip,
+    then the optimizer (decayed weights, then momentum) at
+    ``schedule(state.step)``, then the EMA.  Returns the global norm of the
+    gradients before the clip, on the device."""
+    model, opt = state.model, state.optimizer
+    params = list(model.parameters())
+    for p in params:                # a parameter the loss did not reach
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in params]
+    norm = torch.nn.utils.get_total_norm(grads)
+    if cfg.grad_clip_norm:
+        torch._foreach_mul_(
+            grads, torch.clamp(cfg.grad_clip_norm / norm, max=1.0))
+    lr = schedule(state.step)
+    for group in opt.param_groups:
+        group["lr"] = lr
+    opt.step()
+    state.step += 1
+    if state.ema_params is not None:
+        # TF ExponentialMovingAverage(num_updates=step): the decay is
+        # min(decay, (1+t)/(10+t)), in float32 as the JAX package
+        t = np.float32(state.step)
+        d = float(min(np.float32(cfg.ema_decay),
+                      (np.float32(1) + t) / (np.float32(10) + t)))
+        named = dict(model.named_parameters())
+        ema = list(state.ema_params.values())
+        torch._foreach_mul_(ema, d)
+        torch._foreach_add_(
+            ema, [named[n].detach() for n in state.ema_params],
+            alpha=1.0 - d)
+    return norm
+
+
+def make_train_step(spec: DatasetSpec, cfg: config_lib.TrainConfig):
+    """``step_fn(state, batch) -> (state, metrics)``: one update of
+    ``state`` in place from a batch of tensors on the model's device.
+
+    With ``grad_accum_steps`` the batch splits into that many
+    microbatches, run in turn: batch norm's running statistics chain
+    through them, and the gradients and metrics are their means.  Metrics
+    (the losses and ``grad_norm``, the global norm before the clip) stay
+    on the device."""
+    _check_ported(cfg)
+    loss_fn = make_loss_fn(spec, cfg)
+    schedule = make_learning_rate(cfg)
+    accum = max(int(cfg.grad_accum_steps or 1), 1)
+
+    def step_fn(state: TrainState, batch: Mapping[str, torch.Tensor]):
+        b = batch["image"].shape[0]
+        if b % accum:
+            raise ValueError(f"per-host batch {b} not divisible by "
+                             f"grad_accum_steps {accum}")
+        m = b // accum
+        state.optimizer.zero_grad(set_to_none=True)
+        micro = []
+        for i in range(accum):
+            mb = ({k: v[i * m:(i + 1) * m] for k, v in batch.items()}
+                  if accum > 1 else batch)
+            total, metrics = loss_fn(state.model, mb, True)
+            total.backward()
+            micro.append(metrics)
+        if accum > 1:
+            torch._foreach_div_([p.grad for p in state.model.parameters()
+                                 if p.grad is not None], float(accum))
+            metrics = {k: torch.stack([mt[k] for mt in micro]).mean()
+                       for k in micro[0]}
+        metrics["grad_norm"] = apply_gradients(state, cfg, schedule)
+        return state, metrics
+
+    return step_fn
+
+
+# -- loop ---------------------------------------------------------------------
+
+def batch_to_device(batch: Mapping, device) -> dict[str, torch.Tensor]:
+    """A numpy batch as tensors on ``device``; to a CUDA device through
+    pinned memory, without waiting for the copy."""
+    device = torch.device(device)
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        out[k] = (t.pin_memory().to(device, non_blocking=True)
+                  if device.type == "cuda" else t.to(device))
+    return out
+
+
+def train(cfg: config_lib.TrainConfig, *, train_iter: Iterable,
+          num_steps: int | None = None, hooks=(), device=None,
+          checkpoint_manager=None, stop_event=None):
+    """Run ``num_steps`` (default ``cfg.num_steps``) train steps from a
+    fresh state on ``device`` (default ``cuda``) over ``train_iter``, an
+    iterator of numpy batches.  Every ``cfg.log_every`` steps and at the
+    last the metrics come to the host, are logged and join the returned
+    history; ``hooks`` are called ``hook(step, state, metrics)`` after
+    every step.  Returns ``(state, history)``."""
+    if checkpoint_manager is not None or stop_event is not None:
+        raise NotImplementedError(
+            "checkpoints and the SIGTERM stop are not ported yet")
+    if cfg.clip_frames > 1:
+        raise NotImplementedError("clip training (clip_frames > 1) is not "
+                                  "ported yet")
+    if cfg.data_echo > 1:
+        raise NotImplementedError("data_echo is not ported yet")
+    if train_iter is None:
+        raise NotImplementedError(
+            "the input pipeline is not ported yet; pass train_iter")
+    dev = resolve_device(device)
+    state, spec = create_state(cfg, device=dev)
+    step_fn = make_train_step(spec, cfg)
+    num_steps = num_steps or cfg.num_steps
+    batches: Iterator = iter(train_iter)
+    history = []
+    t0 = time.time()
+    for _ in range(max(num_steps - state.step, 0)):
+        batch = batch_to_device(next(batches), dev)
+        state, metrics = step_fn(state, batch)
+        step = state.step
+        if step % cfg.log_every == 0 or step == num_steps:
+            metrics = {k: float(v) for k, v in metrics.items()}
+            log.info("step %d %s (%.2f s)", step, metrics, time.time() - t0)
+            history.append({"step": step, **metrics})
+        for hook in hooks:
+            hook(step, state, metrics)
+    return state, history

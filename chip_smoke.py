@@ -24,15 +24,31 @@ Phases; any failure raises and the process exits non-zero:
    once per dispatch, and the logits of 2 images against the CPU plain
    path; prints images/s and the median and p90 time of a call at each
    bucket.
-4. A ``kernels`` JSON line, then the last line
+   Phase 2 also holds the gradients of ``AttentionalPoolFn`` (the kernels'
+   forward, ``fused_pool_backward``) against torch autograd through the
+   plain forward at every case, and times the backward beside it.
+4. Training: the ``mpii_rank1_224`` preset at full width (ResNet-101,
+   224 px, batch 8, float32, BN in train mode, staircase exponential
+   schedule, SGD momentum, clip 10) from seeded random weights in the Flax
+   layout.  One step on the card and on the CPU from the same weights and
+   batch, TF32 off, compared; 10 timed steps with cuDNN's default TF32
+   (median step ms, images/s); then ``train.train`` for 8 steps, counted:
+   each kernel launches once a forward, loss and parameters stay finite.
+   A second, small case: the ``__graft_entry__.py`` config without its
+   mesh (resnet_v1_50, 64 px, pose attention, rank 2, EMA 0.999, two
+   microbatches a step), 2 steps card vs CPU, each kernel twice a step.
+5. A ``kernels`` JSON line (``launches`` from phase 3's serving run,
+   ``train_launches`` from phase 4's ``train``), then the last line
    ``{"ok": true, "device": {...}}``.
 
-``--profile`` adds a torch.profiler breakdown of a call at each bucket.
+``--profile`` adds a torch.profiler breakdown of a call at each bucket and
+of one training step.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -45,6 +61,7 @@ import torch
 from attentionalpoolingaction_torch import config as config_lib
 from attentionalpoolingaction_torch import convert
 from attentionalpoolingaction_torch import serving
+from attentionalpoolingaction_torch import train
 from attentionalpoolingaction_torch.ops import _build
 from attentionalpoolingaction_torch.ops import attn_pool_cuda as apc
 from attentionalpoolingaction_torch.train import build_model, normalize_images
@@ -54,7 +71,30 @@ from attentionalpoolingaction_torch.train import build_model, normalize_images
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 KERNEL_RTOL = 1e-5      # kernel vs plain, of the largest |output|
+# bf16 X: dx is rounded to bf16 (2^-8) after sums taken in another order
+BF16_DX_RTOL = 1e-2
 CPU_RTOL = 5e-4         # card vs CPU logits through ResNet-101, no TF32
+# One train step, card vs CPU, TF32 off.  Float32 rounding grows with depth
+# through train-mode batch norm and moves ReLU inputs near zero across the
+# kink, so two correct float32 steps differ well beyond float32's epsilon
+# in the gradients.  ``python -m attentionalpoolingaction_torch.precision``
+# measures a float32 step against a float64 one; at full width, seeds 0-2,
+# on an H100 and on its host's CPU, the largest gaps were: grad_norm
+# 9.8e-4, each BN statistic's change 3.3e-4 of its largest change, the
+# momentum buffers (the clipped gradient plus the decay: the first update
+# over -lr) 7.7% in L2 in the worst leaf and 6.0% over all leaves, the
+# pooling head's 1.2e-3.  Each tolerance is about 3x that reading; the
+# loss's is 1e-3.  conv1 carries 99.997% of grad_norm's square, so
+# grad_norm and the overall L2 read conv1; the per-leaf limits cover the
+# rest.  Parameter changes themselves are not compared: those of BN
+# scales near 1 are a few ulps.
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_NORM_RTOL = 3e-3
+TRAIN_STAT_RTOL = 1e-3
+TRAIN_LEAF_L2 = 0.2
+TRAIN_TOTAL_L2 = 0.15
+TRAIN_HEAD_L2 = 4e-3
+GRAD_NAMES = ("x", "attn_w", "attn_b", "sal_w", "sal_b")
 SOURCE = "attentionalpoolingaction_torch/csrc/attn_pool.cu"
 REPLACES = {
     "saliency_summary":
@@ -267,7 +307,49 @@ def phase_kernels(timer):
                         f"{name} disagrees with its plain version at "
                         f"{row['case']}: relative error {rel:.2e} >= "
                         f"{KERNEL_RTOL}")
+        check_backward(timer, a, w_pfc, (b, n, f, c, p, dt), i)
     return rows
+
+
+def check_backward(timer, a, w_pfc, case, seed):
+    """AttentionalPoolFn's gradients (the kernels' forward, then
+    fused_pool_backward) against torch autograd through the plain
+    forward, on the same inputs and cotangent; the backward's time beside
+    the plain autograd's."""
+    b, n, f, c, p, dt = case
+    g = torch.randn(b, c, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(seed))
+    fn_in = {k: a[k].detach().clone().requires_grad_() for k in GRAD_NAMES}
+    logits = apc.attentional_pool_fused(*(fn_in[k] for k in GRAD_NAMES),
+                                        w_pfc=w_pfc)
+    logits.backward(g)
+    plain_in = {k: a[k].detach().clone().requires_grad_()
+                for k in GRAD_NAMES}
+    pv, ps = apc.saliency_summary_plain(plain_in["x"], plain_in["sal_w"],
+                                        plain_in["sal_b"])
+    plain_logits = apc.project_logits_plain(
+        pv, ps, plain_in["attn_w"].permute(2, 0, 1), plain_in["attn_b"])
+    plain_logits.backward(g, retain_graph=True)
+    worst = 0.0
+    for k in GRAD_NAMES:
+        rel, _ = rel_err(fn_in[k].grad.float(), plain_in[k].grad.float())
+        tol = BF16_DX_RTOL if k == "x" and dt == torch.bfloat16 \
+            else KERNEL_RTOL
+        if not rel < tol:
+            raise AssertionError(
+                f"d{k} of AttentionalPoolFn disagrees with autograd at B{b} "
+                f"N{n} C{c} P{p} {dt}: relative error {rel:.2e} >= {tol}")
+        worst = max(worst, rel)
+    with torch.no_grad():
+        v, s = apc.saliency_summary(a["x"], a["sal_w"], a["sal_b"])
+    ms = timer(lambda: apc.fused_pool_backward(
+        a["x"], w_pfc, a["attn_b"], a["sal_w"], v, s, g))
+    leaves = [plain_in[k] for k in GRAD_NAMES]
+    plain_ms = timer(lambda: torch.autograd.grad(plain_logits, leaves, g,
+                                                 retain_graph=True))
+    log(f"B{b:<3} N{n:<4} C{c:<4} P{p} {str(dt).removeprefix('torch.'):<9}"
+        f"{'backward':<18}{worst:<10.2e}{ms:<9.4f}{plain_ms:<10.4f}(torch "
+        f"ops; plain = autograd of the plain forward)")
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -396,11 +478,282 @@ def phase_profile(pred):
                 f"{e.key[:80]}")
 
 
+# -- phase 4 -----------------------------------------------------------------
+
+GRAFT = dict(dataset="mpii", backbone="resnet_v1_50", pooling="pose_attention",
+             rank=2, image_size=64, batch_size=4, bf16_backbone=False,
+             learning_rate=1e-3, grad_clip_norm=10.0, lr_schedule="constant",
+             ema_decay=0.999, grad_accum_steps=2)
+
+
+def train_batch(rng, cfg):
+    """A seeded numpy batch: uint8 images, labels and, for pose attention,
+    the crop/flip transform, keypoints and visibility."""
+    b, size = cfg.batch_size, cfg.image_size
+    batch = {"image": rng.integers(0, 256, (b, size, size, 3), np.uint8),
+             "label": rng.integers(0, 393, b).astype(np.int32)}
+    if cfg.pooling == "pose_attention":
+        batch["transform"] = np.stack(
+            [rng.uniform(0.8, 1.2, b), rng.uniform(0.8, 1.2, b),
+             rng.uniform(0, 8, b), rng.uniform(0, 8, b),
+             (np.arange(b) % 2).astype(np.float64)], 1).astype(np.float32)
+        batch["keypoints"] = rng.uniform(0, size, (b, 16, 2)).astype(
+            np.float32)
+        batch["visibility"] = (rng.uniform(size=(b, 16)) > 0.2).astype(
+            np.float32)
+    return batch
+
+
+def train_snapshot(state):
+    """CPU copies of what a step changes, by name."""
+    opt = state.optimizer
+    return {
+        "stats": {k: v.detach().cpu().clone()
+                  for k, v in state.model.state_dict().items()
+                  if k.endswith(("running_mean", "running_var"))},
+        "momentum": {n: opt.state[p]["momentum_buffer"].cpu().clone()
+                     for n, p in state.model.named_parameters()
+                     if p in opt.state},
+        "params": {n: p.detach().cpu().clone()
+                   for n, p in state.model.named_parameters()},
+        "ema": ({n: t.cpu().clone() for n, t in state.ema_params.items()}
+                if state.ema_params is not None else None),
+    }
+
+
+def sync_state(dst, src):
+    """Set ``dst`` to ``src``: weights, statistics, momentum, EMA, step."""
+    dst.model.load_state_dict(src.model.state_dict())
+    named = dict(dst.model.named_parameters())
+    for n, p in src.model.named_parameters():
+        if p in src.optimizer.state:
+            dst.optimizer.state[named[n]]["momentum_buffer"] = \
+                src.optimizer.state[p]["momentum_buffer"].to(
+                    named[n].device, copy=True)
+    if src.ema_params is not None:
+        for n, t in src.ema_params.items():
+            dst.ema_params[n].copy_(t)
+    dst.step = src.step
+
+
+def l2_rel(got, want):
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def compare_step(what, before, card, cpu, card_m, cpu_m):
+    """Raise unless one step on the card agrees with the same step on the
+    CPU within the TRAIN_* tolerances; return the worst errors."""
+    errs = {}
+    for k, want in cpu_m.items():
+        got = card_m[k]
+        tol = TRAIN_NORM_RTOL if k == "grad_norm" else TRAIN_LOSS_RTOL
+        errs[k] = abs(got - want) / abs(want)
+        if not (np.isfinite(got) and errs[k] < tol):
+            raise AssertionError(f"{what}: {k} {got} on the card, {want} on "
+                                 f"the CPU (tolerance {tol})")
+    errs["bn_stat_change"] = 0.0
+    for k, want in cpu["stats"].items():
+        d_card, d_cpu = card["stats"][k] - before["stats"][k], \
+            want - before["stats"][k]
+        err = float((d_card - d_cpu).abs().max() / d_cpu.abs().max())
+        errs["bn_stat_change"] = max(errs["bn_stat_change"], err)
+        if not err < TRAIN_STAT_RTOL:
+            raise AssertionError(f"{what}: the change of {k} differs by "
+                                 f"{err:.2e} of its largest")
+    sq_err = sq_ref = errs["momentum_leaf_l2"] = errs["head_l2"] = 0.0
+    for k, want in cpu["momentum"].items():
+        got = card["momentum"][k]
+        err = l2_rel(got, want)
+        head = k.startswith("head.")
+        tol = TRAIN_HEAD_L2 if head else TRAIN_LEAF_L2
+        key = "head_l2" if head else "momentum_leaf_l2"
+        errs[key] = max(errs[key], err)
+        if not err < tol:
+            raise AssertionError(f"{what}: momentum of {k} differs by "
+                                 f"{err:.2e} in L2 (tolerance {tol})")
+        sq_err += float(((got - want) ** 2).sum())
+        sq_ref += float((want ** 2).sum())
+    errs["momentum_total_l2"] = (sq_err / sq_ref) ** 0.5
+    if not errs["momentum_total_l2"] < TRAIN_TOTAL_L2:
+        raise AssertionError(f"{what}: momentum buffers differ by "
+                             f"{errs['momentum_total_l2']:.2e} in L2")
+    for name, tree in (("params", card["params"]), ("ema", card["ema"])):
+        if tree is not None and not all(torch.isfinite(t).all()
+                                        for t in tree.values()):
+            raise AssertionError(f"{what}: non-finite {name} on the card")
+    log(f"{what}: card vs CPU, TF32 off: " + ", ".join(
+        f"{k} {v:.2e}" for k, v in errs.items()))
+    return errs
+
+
+def phase_training(card):
+    """mpii_rank1_224 at full width: card vs CPU, timed steps, and the
+    counted main path through train.train."""
+    cfg = config_lib.get_config("mpii_rank1_224")
+    variables = convert.random_flax_variables(
+        cfg.backbone, num_classes=393, rank=cfg.rank, num_positions=49,
+        seed=0)
+    rng = np.random.default_rng(1)
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.monotonic()
+    card_state, spec = train.create_state(cfg, device="cuda",
+                                          variables=variables)
+    cpu_state, _ = train.create_state(cfg, device="cpu", variables=variables)
+    step = train.make_train_step(spec, cfg)
+    log(f"train states ({cfg.backbone} {cfg.image_size}px batch "
+        f"{cfg.batch_size}, card and CPU) built in "
+        f"{time.monotonic() - t0:.1f} s")
+    batch = train_batch(rng, cfg)
+    before = train_snapshot(cpu_state)
+    _, card_m = step(card_state, train.batch_to_device(batch, "cuda"))
+    t0 = time.monotonic()
+    _, cpu_m = step(cpu_state, train.batch_to_device(batch, "cpu"))
+    log(f"one CPU step took {time.monotonic() - t0:.1f} s "
+        f"({torch.get_num_threads()} threads)")
+    errs = compare_step(
+        "mpii_rank1_224 step", before, train_snapshot(card_state),
+        train_snapshot(cpu_state), {k: float(v) for k, v in card_m.items()},
+        {k: float(v) for k, v in cpu_m.items()})
+    del cpu_state
+
+    # -- step time, cuDNN's default TF32 -------------------------------------
+    torch.backends.cudnn.allow_tf32 = True
+    dev_batch = train.batch_to_device(train_batch(rng, cfg), "cuda")
+    for _ in range(3):
+        step(card_state, dev_batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        step(card_state, dev_batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = float(np.median(times))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"train step {cfg.backbone} {cfg.image_size}px batch "
+        f"{cfg.batch_size}: median {med * 1e3:.3f} ms over 10 steps (min "
+        f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
+        f"{cfg.batch_size / med:.1f} images/s, peak {peak_gb:.2f} GB "
+        f"(batch on the card, cudnn TF32 on) on {card}")
+
+    # -- the main path, counted: train.train over 8 numpy batches ------------
+    run_cfg = dataclasses.replace(cfg, log_every=4)
+    batches = [train_batch(rng, cfg) for _ in range(8)]
+    apc.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, history = train.train(run_cfg, train_iter=iter(batches),
+                                 num_steps=8, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(apc.launch_counts)
+    log(f"train.train: 8 steps from the seed-{cfg.seed} init in {wall:.1f} s "
+        f"(state built included); history {history}; launches {launches}")
+    if launches != {"saliency_summary": 8, "project_logits": 8}:
+        raise AssertionError(f"kernel launches {launches} over 8 train "
+                             "steps, want 8 and 8")
+    if not all(np.isfinite(v) for h in history for v in h.values()):
+        raise AssertionError(f"non-finite metrics {history}")
+    if not all(torch.isfinite(p).all() for p in state.model.parameters()):
+        raise AssertionError("non-finite parameters after train.train")
+    return {"launches": launches, "step_ms": med * 1e3,
+            "images_per_s": cfg.batch_size / med, "errs": errs,
+            "state": card_state, "step": step, "batch": dev_batch}
+
+
+def phase_training_small():
+    """The __graft_entry__ config without its mesh: 2 steps card vs CPU,
+    each from the same state; each kernel launches twice a step."""
+    cfg = config_lib.TrainConfig(**GRAFT)
+    variables = convert.random_flax_variables(
+        cfg.backbone, num_classes=393, rank=cfg.rank, num_positions=4,
+        pooling=cfg.pooling, seed=2)
+    rng = np.random.default_rng(2)
+    torch.backends.cudnn.allow_tf32 = False
+    card_state, spec = train.create_state(cfg, device="cuda",
+                                          variables=variables)
+    cpu_state, _ = train.create_state(cfg, device="cpu", variables=variables)
+    step = train.make_train_step(spec, cfg)
+    for i in range(2):
+        batch = train_batch(rng, cfg)
+        sync_state(card_state, cpu_state)
+        before = train_snapshot(cpu_state)
+        apc.reset_launch_counts()
+        _, card_m = step(card_state, train.batch_to_device(batch, "cuda"))
+        torch.cuda.synchronize()
+        launches = dict(apc.launch_counts)
+        if launches != {"saliency_summary": 2, "project_logits": 2}:
+            raise AssertionError(f"graft step {i + 1}: launches {launches}, "
+                                 "want 2 and 2 (two microbatches)")
+        _, cpu_m = step(cpu_state, train.batch_to_device(batch, "cpu"))
+        compare_step(f"graft config step {i + 1}", before,
+                     train_snapshot(card_state), train_snapshot(cpu_state),
+                     {k: float(v) for k, v in card_m.items()},
+                     {k: float(v) for k, v in cpu_m.items()})
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def phase_train_profile(run):
+    """Device time of one mpii_rank1_224 train step: the top kernels, the
+    backward (autograd's nodes), the optimizer, the pooling head's forward
+    kernels and backward, and the device's busy share of the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    state, step, batch = run["state"], run["step"], run["batch"]
+    step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    averages = prof.key_averages()
+    # the device's own events; a record_function range (the optimizer's
+    # "Optimizer.step#SGD.step") shows on the device's track too, and
+    # would count its kernels twice
+    kernels = [e for e in averages if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    if total == 0:
+        raise AssertionError("the profiler saw no device time")
+
+    def inclusive(pred):
+        return sum(e.device_time_total for e in averages
+                   if e.device_type != DeviceType.CUDA and pred(e.key)) / 1e3
+
+    backward = inclusive(
+        lambda k: k.startswith("autograd::engine::evaluate_function"))
+    head_bwd = inclusive(lambda k: k.startswith(
+        "autograd::engine::evaluate_function") and "AttentionalPoolFn" in k)
+    optimizer = inclusive(lambda k: k.startswith("Optimizer.step"))
+    head_fwd = sum(e.self_device_time_total for e in kernels
+                   if "saliency_summary_kernel" in e.key
+                   or "project_logits_kernel" in e.key) / 1e3
+    bn = sum(e.self_device_time_total for e in kernels
+             if "batch_norm" in e.key) / 1e3
+    log(f"profile: one train step, {wall_ms:.3f} ms wall, {total:.3f} ms "
+        f"device time (device busy {total / wall_ms:.1%}), "
+        f"{sum(e.count for e in kernels)} device events")
+    log(f"  backward (autograd nodes) {backward:.3f} ms "
+        f"({backward / total:.1%}); optimizer.step {optimizer:.3f} ms; "
+        f"the rest (forward, losses, clip, EMA) "
+        f"{total - backward - optimizer:.3f} ms; BN kernels (forward and "
+        f"backward) {bn:.3f} ms ({bn / total:.1%})")
+    log(f"  pooling head: forward kernels {head_fwd:.3f} ms, backward "
+        f"(AttentionalPoolFn) {head_bwd:.3f} ms")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        ms = e.self_device_time_total / 1e3
+        log(f"  {ms / total:6.1%} {ms:8.3f} ms  {e.count:4d}x  {e.key[:80]}")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="add a profiler breakdown of a call at "
-                        "each bucket")
+                        "each bucket and of one train step")
     args = parser.parse_args()
 
     card = phase_device()
@@ -409,6 +762,11 @@ def main():
     pred, launches = phase_serving(card)
     if args.profile:
         phase_profile(pred)
+    del pred
+    run = phase_training(card)
+    phase_training_small()
+    if args.profile:
+        phase_train_profile(run)
 
     kernels = []
     for name in ("saliency_summary", "project_logits"):
@@ -424,7 +782,12 @@ def main():
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
-            "bound_share": main_row["bound_share"]})
+            "bound_share": main_row["bound_share"],
+            "train_launches": run["launches"][name]})
+    log(json.dumps({"training": {
+        "config": "mpii_rank1_224", "card": card,
+        "step_ms": run["step_ms"], "images_per_s": run["images_per_s"],
+        "card_vs_cpu": run["errs"], "launches": run["launches"]}}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

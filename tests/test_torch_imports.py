@@ -36,8 +36,10 @@ def test_no_jax_imports(path):
 
 def test_scan_sees_every_module():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
-    for mod in ("config", "convert", "serving", "train", "ops/attn_pool",
-                "ops/attn_pool_cuda", "models/resnet", "models/heads"):
+    for mod in ("config", "convert", "serving", "train", "precision",
+                "ops/attn_pool",
+                "ops/attn_pool_cuda", "ops/heatmap", "models/resnet",
+                "models/heads", "models/action_model", "models/factory"):
         assert f"attentionalpoolingaction_torch/{mod}.py" in names
 
 
