@@ -1,0 +1,452 @@
+"""Checkpoints of the port: its own save/restore of a ``TrainState``,
+keep-best retention, and the TF-slim checkpoint converter (slim
+``resnet_v1_101/...`` variable names -> Flax-layout trees) for ImageNet
+init.  Port of the JAX package's ``checkpoint.py``.
+
+The JAX package writes Orbax, which the card's machine does not have, so
+the port keeps its own format under the same directory layout:
+
+    <workdir>/checkpoints/<step>/state.pt       the rolling window
+    <workdir>/checkpoints_best/<step>/state.pt  the keep-best slot
+    <workdir>/checkpoints_best/best.json        {step, metric, value}
+
+``state.pt`` is one ``torch.save`` of plain tensors, ints and dicts, which
+``torch.load(..., weights_only=True)`` reads: ``step``, ``model`` (the
+model's state dict: parameters and BN running statistics), ``optimizer``
+(the optimizer's state dict: momentum buffers or AdamW's moments) and,
+when the run keeps one, ``ema_params`` (the parameter EMA by name).  A
+save writes ``<step>.tmp/`` and renames it into place, so a step
+directory is either whole or absent.  An Orbax step directory raises.
+
+Slim checkpoints are read by the port's own reader of TF's V1 and V2
+formats (``tf_checkpoint.py``), in place of ``tf.train.load_checkpoint``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import os
+import pathlib
+import re
+import shutil
+from typing import Any
+
+import numpy as np
+import torch
+
+from attentionalpoolingaction_torch import convert
+from attentionalpoolingaction_torch import tf_checkpoint
+
+log = logging.getLogger(__name__)
+
+CHECKPOINT_FILE = "state.pt"
+_TMP_SUFFIX = ".tmp"
+
+
+# ---------------------------------------------------------------------------
+# save/restore
+# ---------------------------------------------------------------------------
+
+def _fsync_dir(path: pathlib.Path) -> None:
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+class CheckpointManager:
+    """Numbered step directories under ``directory``, the ``max_to_keep``
+    newest kept (all when None).  Saves are synchronous and atomic."""
+
+    def __init__(self, directory, max_to_keep: int | None = 3):
+        self.directory = pathlib.Path(directory)
+        self.max_to_keep = max_to_keep
+        self.directory.mkdir(parents=True, exist_ok=True)
+
+    def all_steps(self) -> list[int]:
+        """The committed steps, ascending; leftover ``<step>.tmp``
+        directories of an interrupted save are not steps."""
+        if not self.directory.is_dir():
+            return []
+        return sorted(int(p.name) for p in self.directory.iterdir()
+                      if p.name.isdigit() and p.is_dir())
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def step_dir(self, step: int) -> pathlib.Path:
+        return self.directory / str(int(step))
+
+    def save(self, step: int, payload: dict) -> None:
+        """Write ``payload`` as step ``step``: into ``<step>.tmp/``, synced,
+        then renamed into place; then prune to ``max_to_keep``.  A step
+        that is already saved raises, as Orbax's manager refuses it."""
+        final = self.step_dir(step)
+        if final.exists():
+            raise ValueError(f"step {int(step)} is already saved under "
+                             f"{self.directory}")
+        tmp = self.directory / f"{int(step)}{_TMP_SUFFIX}"
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir(parents=True)
+        with open(tmp / CHECKPOINT_FILE, "wb") as f:
+            torch.save(payload, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, final)
+        _fsync_dir(self.directory)
+        if self.max_to_keep is not None:
+            for s in self.all_steps()[:-self.max_to_keep]:
+                shutil.rmtree(self.step_dir(s), ignore_errors=True)
+
+    def load(self, step: int, map_location, *, mmap: bool = False) -> dict:
+        """The payload of step ``step``, its tensors on ``map_location``
+        (memory-mapped, and read only where touched, with ``mmap``)."""
+        d = self.step_dir(step)
+        f = d / CHECKPOINT_FILE
+        if not f.is_file():
+            if (d / "default").exists() or any(
+                    p.name.startswith("_CHECKPOINT_METADATA")
+                    for p in d.glob("_*")):
+                raise ValueError(
+                    f"{d} is an Orbax checkpoint, the JAX package's format; "
+                    f"the port reads only its own ({CHECKPOINT_FILE}), and "
+                    "reading Orbax is not ported (the card's machine has no "
+                    "Orbax)")
+            raise ValueError(f"{d} holds no {CHECKPOINT_FILE}: not a "
+                             "checkpoint of the port")
+        return torch.load(f, map_location=map_location, weights_only=True,
+                          mmap=mmap)
+
+    def reload(self) -> None:
+        """Nothing to drop: every listing reads the directory (kept for
+        ``serving.CheckpointFollower``, as Orbax's manager has it)."""
+
+    def wait_until_finished(self) -> None:
+        """Saves are synchronous (the JAX API's drain of async saves)."""
+
+
+def make_manager(workdir, max_to_keep: int | None = 3) -> CheckpointManager:
+    return CheckpointManager(workdir, max_to_keep=max_to_keep)
+
+
+def save(manager: CheckpointManager, state, step: int | None = None) -> None:
+    """Save a ``train.TrainState`` as step ``step`` (default its own)."""
+    payload = {"step": int(state.step),
+               "model": state.model.state_dict(),
+               "optimizer": state.optimizer.state_dict()}
+    if state.ema_params is not None:
+        payload["ema_params"] = dict(state.ema_params)
+    manager.save(int(state.step) if step is None else int(step), payload)
+
+
+def restore(manager: CheckpointManager, state, step: int | None = None):
+    """Load step ``step`` (default the latest) into the live ``state`` in
+    place, its tensors mapped to the model's device, whatever device the
+    step was saved from.  A saved EMA is read only into a state that keeps
+    one; a state that keeps one raises on a step without it.  Returns the
+    state, or None when there is no step."""
+    step = manager.latest_step() if step is None else step
+    if step is None:
+        return None
+    device = next(state.model.parameters()).device
+    payload = manager.load(step, map_location=device)
+    if state.ema_params is not None and "ema_params" not in payload:
+        raise ValueError(f"step {step} under {manager.directory} has no "
+                         "ema_params to restore into the state's EMA")
+    state.model.load_state_dict(payload["model"])
+    state.optimizer.load_state_dict(payload["optimizer"])
+    if state.ema_params is not None:
+        with torch.no_grad():
+            for name, t in state.ema_params.items():
+                t.copy_(payload["ema_params"][name])
+    state.step = int(payload["step"])
+    return state
+
+
+def saved_tree_keys(manager: CheckpointManager, step=None) -> set:
+    """Top-level keys of a saved step (e.g. whether it carries
+    ``ema_params``)."""
+    step = manager.latest_step() if step is None else step
+    if step is None:
+        return set()
+    return set(manager.load(step, map_location="cpu", mmap=True))
+
+
+@dataclasses.dataclass
+class EvalState:
+    """What inference needs from a step, in the Flax layout of numpy
+    arrays that ``serving.Predictor`` and ``evaluate`` take."""
+    step: int
+    params: Any
+    batch_stats: Any
+    # present iff the run trained with config.ema_decay
+    ema_params: Any = None
+
+
+def restore_for_eval(manager: CheckpointManager, step=None
+                     ) -> EvalState | None:
+    """Restore only what inference needs (step, params, batch_stats and
+    the EMA when saved), on the CPU whatever device saved it, and ignore
+    the optimizer state (so a change of optimizer between the run and the
+    eval does not matter)."""
+    step = manager.latest_step() if step is None else step
+    if step is None:
+        return None
+    payload = manager.load(step, map_location="cpu", mmap=True)
+    params, batch_stats = convert.state_dict_to_flax(payload["model"])
+    ema = payload.get("ema_params")
+    return EvalState(
+        step=int(payload["step"]), params=params, batch_stats=batch_stats,
+        ema_params=None if ema is None else convert.state_dict_to_flax(ema)[0])
+
+
+# ---------------------------------------------------------------------------
+# Keep-best retention
+# ---------------------------------------------------------------------------
+
+BEST_SUBDIR = "checkpoints_best"
+
+
+def best_metric_of(results: dict) -> tuple[str, float]:
+    """The metric that ranks checkpoints for a dataset's eval protocol:
+    mAP (MPII/HICO) with accuracy as the fallback (HMDB)."""
+    for k in ("mAP", "accuracy"):
+        if k in results and results[k] == results[k]:  # present, not NaN
+            return k, float(results[k])
+    raise ValueError(f"no rankable metric in {sorted(results)}")
+
+
+class BestKeeper:
+    """Keep the argmax-metric checkpoint beside the rolling window.
+
+    The main manager keeps the ``max_to_keep`` NEWEST steps, so a long
+    fine-tune that peaks mid-run would prune its best checkpoint.  The
+    keeper holds a single-slot manager under ``<workdir>/checkpoints_best``
+    and a ``best.json`` ({step, metric, value}) saying what it holds; eval
+    hooks call :meth:`update` with each eval's results and the live
+    ``TrainState``, and only a strict improvement saves.  The whole state
+    is saved (EMA included); ``best.json`` persists, so a restarted run
+    keeps ranking against the best from before the restart.
+    """
+
+    def __init__(self, workdir):
+        self.dir = pathlib.Path(workdir) / BEST_SUBDIR
+        self._mgr = CheckpointManager(self.dir, max_to_keep=1)
+        self._meta = self.dir / "best.json"
+
+    def best(self) -> dict | None:
+        """The committed best record, or None.  A meta file whose step the
+        slot does not hold (a crash between a save and its meta, or the
+        slot deleted by hand) is stale: it reads as None, so the next
+        eval's save fills the slot again instead of being blocked by it."""
+        if not self._meta.exists():
+            return None
+        meta = json.loads(self._meta.read_text())
+        if int(meta.get("step", -1)) not in self._mgr.all_steps():
+            log.warning(
+                "best.json points at step %s but %s holds %s — stale "
+                "(crash before the save committed?); ignoring it",
+                meta.get("step"), self.dir, self._mgr.all_steps())
+            return None
+        return meta
+
+    def update(self, step: int, results: dict, state) -> bool:
+        """Save ``state`` iff ``results`` beats the stored best; returns
+        whether it saved.  The save commits first and the meta is written
+        after it, so a crash in between leaves at worst a checkpoint
+        without a meta, never a meta naming a missing checkpoint."""
+        name, value = best_metric_of(results)
+        prev = self.best()
+        if prev is not None and value <= float(prev["value"]):
+            return False
+        save(self._mgr, state, step=int(step))
+        tmp = self._meta.with_name(self._meta.name + _TMP_SUFFIX)
+        tmp.write_text(json.dumps(
+            {"step": int(step), "metric": name, "value": value}))
+        os.replace(tmp, self._meta)
+        log.info("new best %s=%.6f at step %d -> %s", name, value,
+                 int(step), self.dir)
+        return True
+
+    def wait_until_finished(self):
+        self._mgr.wait_until_finished()
+
+
+def manager_for_step(workdir, step):
+    """Resolve a ``--step`` value to ``(manager, concrete_step)``: None
+    (the latest), an int or numeric string (that step of the rolling
+    window), or ``"best"`` (the keep-best slot, whose one step is the
+    best, so the latest there resolves it)."""
+    if isinstance(step, str) and step.strip().lower() == "best":
+        return make_manager(pathlib.Path(workdir) / BEST_SUBDIR), None
+    if isinstance(step, str):
+        step = int(step)
+    return make_manager(pathlib.Path(workdir) / "checkpoints"), step
+
+
+# ---------------------------------------------------------------------------
+# TF-slim checkpoint conversion
+# ---------------------------------------------------------------------------
+
+_SLIM_BN = {"gamma": "scale", "beta": "bias",
+            "moving_mean": "mean", "moving_variance": "var"}
+
+
+def _map_slim_name(name: str, model_scope: str):
+    """Map one slim variable name to (collection, flax_path_tuple).
+
+    Slim layout:
+      resnet_v1_101/conv1/weights                         (7,7,3,64)
+      resnet_v1_101/conv1/BatchNorm/{gamma,beta,moving_*}
+      resnet_v1_101/block1/unit_1/bottleneck_v1/conv1/weights
+      resnet_v1_101/block1/unit_1/bottleneck_v1/shortcut/weights
+      resnet_v1_101/logits/{weights,biases}
+    Flax layout (note "block1/unit_1" is a SINGLE module name, one key):
+      params:      resnet / conv1 / kernel
+                   resnet / conv1_bn / {scale,bias}
+                   resnet / "block1/unit_1" / {conv1,conv1_bn,shortcut,...}
+      batch_stats: resnet / conv1_bn / {mean,var}
+    """
+    name = name.removeprefix(model_scope + "/")
+    parts = [p for p in name.split("/") if p != "bottleneck_v1"]
+    # merge blockX/unit_Y into the single Flax module key "blockX/unit_Y"
+    if len(parts) >= 2 and parts[0].startswith("block"):
+        parts = [parts[0] + "/" + parts[1]] + parts[2:]
+    # only backbone scopes map onto the model; the ImageNet classifier
+    # (resnet_v1_101/logits/{weights,biases}) and anything else unknown
+    # are skipped by the caller
+    if not (parts[0] == "conv1" or re.fullmatch(r"block\d+/unit_\d+",
+                                                parts[0])):
+        return None
+    leaf = parts[-1]
+    if leaf in ("weights", "biases"):
+        flax_leaf = "kernel" if leaf == "weights" else "bias"
+        return "params", tuple(["resnet"] + parts[:-1] + [flax_leaf])
+    if len(parts) >= 3 and parts[-2] == "BatchNorm" and leaf in _SLIM_BN:
+        conv_name = parts[-3]
+        coll = "batch_stats" if leaf.startswith("moving_") else "params"
+        path = parts[:-3] + [conv_name + "_bn", _SLIM_BN[leaf]]
+        return coll, tuple(["resnet"] + path)
+    return None
+
+
+_SLIM_BN_INV = {"scale": "gamma", "bias": "beta",
+                "mean": "moving_mean", "var": "moving_variance"}
+
+
+def _map_flax_path(coll: str, path: tuple, model_scope: str):
+    """Inverse of _map_slim_name: Flax (collection, path) -> slim var name.
+    Returns None for paths outside the backbone (heads etc.)."""
+    if not path or path[0] != "resnet":
+        return None
+    parts = list(path[1:])
+    # split merged "blockX/unit_Y" keys back into two scopes + bottleneck_v1
+    if parts and "/" in parts[0]:
+        block, unit = parts[0].split("/", 1)
+        parts = [block, unit, "bottleneck_v1"] + parts[1:]
+    leaf = parts[-1]
+    if parts[-2].endswith("_bn"):
+        conv = parts[-2][: -len("_bn")]
+        return "/".join([model_scope] + parts[:-2]
+                        + [conv, "BatchNorm", _SLIM_BN_INV[leaf]])
+    if leaf == "kernel":
+        return "/".join([model_scope] + parts[:-1] + ["weights"])
+    if leaf == "bias":
+        return "/".join([model_scope] + parts[:-1] + ["biases"])
+    return None
+
+
+def convert_slim_checkpoint(ckpt_path: str, *,
+                            model_scope: str = "resnet_v1_101"):
+    """Read a TF1-slim ResNet checkpoint (V2 prefix or V1 file) and return
+    {"params": ..., "batch_stats": ...} nested dicts of numpy arrays in the
+    Flax layout (under a top-level "resnet" module), skipping optimizer
+    slots, ``global_step`` and the variables outside the backbone.  Slim
+    conv kernels are HWIO like Flax's, so nothing is transposed."""
+    reader = tf_checkpoint.CheckpointReader(ckpt_path)
+    shapes = reader.get_variable_to_shape_map()
+    out: dict[str, Any] = {"params": {}, "batch_stats": {}}
+    skipped = []
+    for var_name in sorted(shapes):
+        clean = var_name.split(":")[0]
+        if any(s in clean for s in (
+                "Momentum", "global_step", "ExponentialMovingAverage",
+                "RMSProp", "Adam", "beta1_power", "beta2_power")):
+            continue
+        mapped = _map_slim_name(clean, model_scope)
+        if mapped is None:
+            skipped.append(clean)
+            continue
+        coll, path = mapped
+        value = np.asarray(reader.get_tensor(clean))
+        node = out[coll]
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+    if skipped:
+        log.info("slim convert: skipped %d vars (e.g. %s)",
+                 len(skipped), skipped[:3])
+    return out
+
+
+def _copy_tree(tree):
+    """New dicts all the way down, the same leaves."""
+    return {k: _copy_tree(v) if isinstance(v, dict) else v
+            for k, v in tree.items()}
+
+
+def merge_pretrained(variables, converted, *, exclude: tuple[str, ...] = ()):
+    """Overlay converted slim weights onto freshly initialized variables,
+    leaving new-head scopes untouched (the reference's exclusion-list
+    fine-tune init).
+
+    ``exclude``: regexes matched against the slash-joined relative path
+    (e.g. ``("head", "pose_head")``).  Raises on any shape mismatch or on
+    converted vars missing from the model.
+    """
+    flat_conv = {}
+    for coll in ("params", "batch_stats"):
+        for path, val in _flatten(converted.get(coll, {})).items():
+            flat_conv[(coll,) + path] = val
+
+    out = _copy_tree(variables)
+    applied = 0
+    for (coll, *path), val in flat_conv.items():
+        if coll not in variables:
+            continue
+        rel = "/".join(path)
+        if any(re.match(e, rel) for e in exclude):
+            continue
+        node = out[coll]
+        try:
+            for key in path[:-1]:
+                node = node[key]
+            cur = node[path[-1]]
+        except KeyError:
+            raise KeyError(f"converted var {coll}/{rel} not in model")
+        val = np.asarray(val)
+        if tuple(cur.shape) != tuple(val.shape):
+            raise ValueError(
+                f"shape mismatch at {coll}/{rel}: model {cur.shape} "
+                f"vs checkpoint {val.shape}")
+        node[path[-1]] = val.astype(np.asarray(cur).dtype)
+        applied += 1
+    log.info("merged %d pretrained vars", applied)
+    return out
+
+
+def _flatten(tree, prefix=()):
+    """Flatten a nested dict to {path_tuple: leaf} (keys may contain '/')."""
+    flat = {}
+    for k, v in tree.items():
+        p = prefix + (k,)
+        if isinstance(v, dict):
+            flat.update(_flatten(v, p))
+        else:
+            flat[p] = v
+    return flat

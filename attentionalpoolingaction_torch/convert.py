@@ -1,5 +1,5 @@
 """Weight bridge: Flax ``{"params", "batch_stats"}`` trees of numpy arrays
--> the port's state dict.
+-> the port's state dict, and back (``state_dict_to_flax``).
 
 The names follow the Flax layout of the JAX package (``models/resnet.py``;
 ``checkpoint.py::_map_flax_path``), where ``blockB/unit_U`` is ONE key:
@@ -41,6 +41,10 @@ def _leaves(tree: Mapping, prefix: tuple = ()) -> Iterator[tuple]:
 
 def _hwio_to_oihw(a: np.ndarray) -> np.ndarray:
     return np.transpose(a, (3, 2, 0, 1))
+
+
+def _oihw_to_hwio(a: np.ndarray) -> np.ndarray:
+    return np.transpose(a, (2, 3, 1, 0))
 
 
 def _map(coll: str, path: tuple, value: np.ndarray):
@@ -85,6 +89,55 @@ def flax_to_state_dict(params: Mapping, batch_stats: Mapping | None = None
             key, arr = _map(coll, path, np.asarray(value, np.float32))
             out[key] = torch.from_numpy(np.array(arr, np.float32))  # a copy
     return out
+
+
+_BN_LEAVES = {**{v: ("params", k) for k, v in _BN_PARAMS.items()},
+              **{v: ("batch_stats", k) for k, v in _BN_STATS.items()}}
+
+
+def _unmap(key: str, value: np.ndarray):
+    """(collection, Flax path, array) for one port key, the inverse of
+    :func:`_map`; None for ``num_batches_tracked``.  Raises on a key that
+    has no Flax counterpart."""
+    *mods, leaf = key.split(".")
+    if leaf == "num_batches_tracked":
+        return None
+    if mods and mods[0] == "resnet" and len(mods) >= 2:
+        if mods[-1].endswith("_bn"):
+            if leaf in _BN_LEAVES:
+                coll, name = _BN_LEAVES[leaf]
+                return coll, tuple(mods + [name]), value
+        elif leaf == "weight":
+            return "params", tuple(mods + ["kernel"]), _oihw_to_hwio(value)
+    elif mods == ["head"] and leaf in _HEAD_PARAMS:
+        return "params", ("head", leaf), value
+    elif mods == ["head", "logits"] and leaf == "weight":
+        return "params", ("head", "logits", "kernel"), value.T
+    elif mods == ["pose_head", "pose_conv"] and leaf == "weight":
+        return "params", ("pose_head", "pose_conv", "kernel"), \
+            _oihw_to_hwio(value)
+    elif mods in (["head", "logits"], ["pose_head", "pose_conv"]) \
+            and leaf == "bias":
+        return "params", (*mods, "bias"), value
+    raise KeyError(f"no Flax variable for port key {key}")
+
+
+def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]
+                       ) -> tuple[dict, dict]:
+    """Flax-layout ``(params, batch_stats)`` trees of float32 numpy arrays
+    (copies) from the port's state dict, or from a dict of parameters by
+    name (an EMA); the inverse of :func:`flax_to_state_dict`."""
+    trees: dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for key, t in state_dict.items():
+        mapped = _unmap(key, t.detach().to("cpu", torch.float32).numpy())
+        if mapped is None:
+            continue
+        coll, path, arr = mapped
+        node = trees[coll]
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.array(arr, np.float32)   # a contiguous copy
+    return trees["params"], trees["batch_stats"]
 
 
 def load_flax_variables(model: torch.nn.Module, params: Mapping,

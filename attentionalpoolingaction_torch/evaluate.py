@@ -1,0 +1,289 @@
+"""Evaluation driver: run a split through the model, accumulate (logits,
+labels), compute mAP (MPII/HICO) or per-video accuracy (HMDB51).  Port of
+the JAX package's ``evaluate.py`` on one device.
+
+The forward runs on the device (on a card, the pooling head's hand-written
+kernels launch once a batch); the metrics are NumPy on the host
+(``ops/metrics.py``).  Evaluation never touches the state it is given: the
+weights are loaded into a model of its own (the ``Evaluator``'s, built
+once), so evaluating the live training model leaves its parameters, BN
+statistics and train mode as they were, and ``eval_ema`` does not write the
+EMA into the training parameters.
+
+Not ported yet, and raising ``NotImplementedError``: ``eval_int8``
+(``make_int8_eval_step``), building the input without an ``eval_iter``
+(``make_eval_input``; the input pipeline) and multi-process gathers.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from attentionalpoolingaction_torch import config as config_lib
+from attentionalpoolingaction_torch.convert import load_flax_variables
+from attentionalpoolingaction_torch.data.datasets import get_dataset
+from attentionalpoolingaction_torch.device import resolve_device
+from attentionalpoolingaction_torch.ops import metrics as metrics_lib
+from attentionalpoolingaction_torch.train import (
+    TrainState,
+    batch_to_device,
+    build_model,
+    normalize_images,
+)
+
+__all__ = ["Evaluator", "compute_metrics", "eval_logits", "evaluate",
+           "make_eval_input", "make_eval_step", "make_int8_eval_step",
+           "make_multicrop_eval_step", "mesh_from_config"]
+
+log = logging.getLogger(__name__)
+
+
+def mesh_from_config(cfg: config_lib.TrainConfig):
+    """None: the port evaluates on one device (a sharded eval is not
+    ported yet; on one device the JAX function returns None too)."""
+    return None
+
+
+def make_eval_step(model: torch.nn.Module):
+    """``step_fn(images) -> logits``: the model's eval-mode forward of a
+    (B, H, W, 3) batch (or (B, T, H, W, 3) clips) on its device."""
+    @torch.inference_mode()
+    def step_fn(images):
+        return model(normalize_images(images))["logits"]
+
+    return step_fn
+
+
+def make_multicrop_eval_step(model: torch.nn.Module):
+    """``step_fn(images) -> logits``: forward (B, crops, H, W, 3) as one
+    batch of B * crops and average the logits over the crops."""
+    @torch.inference_mode()
+    def step_fn(images):
+        b, c = images.shape[:2]
+        flat = images.reshape((b * c,) + tuple(images.shape[2:]))
+        logits = model(normalize_images(flat))["logits"]
+        return logits.reshape(b, c, -1).mean(dim=1)
+
+    return step_fn
+
+
+def make_int8_eval_step(cfg: config_lib.TrainConfig, mesh=None,
+                        multicrop: bool = False):
+    raise NotImplementedError(
+        "int8 evaluation (BN folding, int8 weights) is not ported yet")
+
+
+def make_eval_input(cfg: config_lib.TrainConfig, spec,
+                    shard_by_process: bool = False):
+    raise NotImplementedError(
+        "the eval input pipeline is not ported yet; pass eval_iter, an "
+        "iterator of numpy batches")
+
+
+def _multicrop(cfg: config_lib.TrainConfig) -> bool:
+    # clip mode folds crops into ROWS, so the (B, crops, H, W, 3) step
+    # applies to the image path only
+    return bool(cfg.eval_multicrop and cfg.eval_multicrop > 1
+                and cfg.clip_frames <= 1)
+
+
+def _check_ported(cfg: config_lib.TrainConfig) -> None:
+    if cfg.eval_int8:
+        make_int8_eval_step(cfg)
+    if torch.distributed.is_available() and \
+            torch.distributed.is_initialized() and \
+            torch.distributed.get_world_size() > 1:
+        raise NotImplementedError(
+            "multi-process evaluation (sharded split, gathered results) is "
+            "not ported yet")
+
+
+def _load_weights(model: torch.nn.Module, state, use_ema: bool) -> None:
+    """Copy the weights of ``state`` into ``model``: a ``TrainState``
+    (its model's state dict, the parameters replaced by its EMA with
+    ``use_ema``) or Flax-layout arrays with ``params``, ``batch_stats``
+    and ``ema_params`` (``checkpoint.restore_for_eval``)."""
+    ema = getattr(state, "ema_params", None)
+    if use_ema and ema is None:
+        raise ValueError(
+            "eval_ema=True but the state/checkpoint has no ema_params "
+            "— train with --set ema_decay=0.9999 (or similar) first")
+    if isinstance(state, TrainState):
+        sd = state.model.state_dict()
+        if use_ema:
+            sd.update(ema)
+        model.load_state_dict(sd)
+    else:
+        load_flax_variables(model, ema if use_ema else state.params,
+                            state.batch_stats)
+
+
+def _start_fetch(logits: torch.Tensor):
+    """Start the copy of ``logits`` (as float32) to the host: on a card,
+    into pinned memory behind the forward on the same stream, with an
+    event recorded after it.  Returns ``(host tensor, event or None)``;
+    the host tensor is ready once the event has completed."""
+    logits = logits.to(torch.float32)
+    if logits.device.type != "cuda":
+        return logits, None
+    host = torch.empty(logits.shape, dtype=torch.float32, pin_memory=True)
+    host.copy_(logits, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def eval_logits(step_fn, eval_iter: Iterable, *, device,
+                max_batches: int | None = None) -> dict[str, np.ndarray]:
+    """Run ``eval_iter``'s numpy batches through ``step_fn`` and return
+    the host arrays: ``logits``, ``label``, ``mask`` and, where the
+    batches have them, ``anno`` and ``video_id`` (padding rows included).
+
+    Pipelined one deep: batch N's forward and the copy of its logits to
+    pinned host memory are queued, then batch N+1's forward, and only then
+    does the host wait, on an event recorded after N's copy.  So the host
+    reads N while the device computes N+1, and prepares and queues N+2
+    meanwhile; the results are the same bits as a fetch after each batch,
+    only the order of waiting moves."""
+    device = torch.device(device)
+    host: dict[str, list] = {"logits": [], "label": [], "mask": [],
+                             "anno": [], "video_id": []}
+
+    def collect(fetch, batch):
+        logits, event = fetch
+        if event is not None:
+            event.synchronize()
+        host["logits"].append(logits.numpy())
+        for k in ("label", "mask", "anno", "video_id"):
+            if k in batch:
+                host[k].append(np.asarray(batch[k]))
+
+    pending = None
+    for i, batch in enumerate(eval_iter):
+        if max_batches is not None and i >= max_batches:
+            break
+        images = batch_to_device({"image": batch["image"]}, device)["image"]
+        fetch = _start_fetch(step_fn(images))
+        if pending is not None:
+            collect(*pending)
+        pending = (fetch, batch)
+    if pending is not None:
+        collect(*pending)
+    return {k: np.concatenate(v) for k, v in host.items() if v}
+
+
+def compute_metrics(cfg: config_lib.TrainConfig, host: dict, *,
+                    return_per_class: bool = False) -> dict:
+    """The dataset's eval protocol on :func:`eval_logits`'s arrays; rows
+    whose ``mask`` is 0 (the padding of a last batch) drop out first."""
+    spec = get_dataset(cfg.dataset)
+    c = spec.num_classes
+    mask = (host["mask"].astype(bool) if "mask" in host
+            else np.zeros(0, bool))
+    logits = host.get("logits", np.zeros((0, c), np.float32))[mask]
+    labels = host.get("label", np.zeros((0,), np.int32))[mask]
+
+    results = {"num_examples": int(mask.sum())}
+    if spec.eval_metric == "map":
+        if not spec.multi_label:
+            onehot = np.zeros_like(logits)
+            onehot[np.arange(labels.size), labels] = 1.0
+            labels_mh = onehot
+        else:
+            labels_mh = labels
+        m, aps = metrics_lib.mean_average_precision(labels_mh, logits)
+        results["mAP"] = m
+        results["num_eval_classes"] = int(np.sum(~np.isnan(aps)))
+        if return_per_class:
+            results["per_class_ap"] = [
+                None if np.isnan(a) else float(a) for a in aps]
+        if not spec.multi_label:
+            results["accuracy"] = metrics_lib.accuracy(labels, logits)
+        if "anno" in host:
+            # HICO "Known Object" protocol: per class, drop unknown pairs
+            # instead of counting them as negatives.  Records without the
+            # anno field parse as all-zero -> nothing known -> skip.
+            anno = host["anno"][mask]
+            if np.any(anno != 0):
+                ko, ko_aps = metrics_lib.mean_average_precision_known(
+                    anno, logits)
+                results["mAP_ko"] = ko
+                if return_per_class:
+                    results["per_class_ap_ko"] = [
+                        None if np.isnan(a) else float(a) for a in ko_aps]
+    else:  # HMDB51: per-video temporal averaging then accuracy
+        vids = host["video_id"][mask]
+        _, avg, vid_labels = metrics_lib.video_average_logits(
+            vids, logits, labels)
+        results["accuracy"] = metrics_lib.accuracy(vid_labels, avg)
+        if cfg.clip_frames > 1:
+            # each row is a CLIP VIEW (clip x crop, already video-level),
+            # not a frame; the row-level number is only informative with
+            # several views per video (accuracy before averaging)
+            if cfg.eval_clips > 1 or (cfg.eval_multicrop
+                                      and cfg.eval_multicrop > 1):
+                results["per_clip_accuracy"] = metrics_lib.accuracy(
+                    labels, logits)
+        else:
+            results["per_frame_accuracy"] = metrics_lib.accuracy(
+                labels, logits)
+        results["num_videos"] = int(avg.shape[0])
+    log.info("eval %s: %s", cfg.dataset, results)
+    return results
+
+
+def _state_device(state, device):
+    if device is None and isinstance(state, TrainState):
+        return next(state.model.parameters()).device
+    return resolve_device(device)
+
+
+def evaluate(cfg: config_lib.TrainConfig, state, *, eval_iter=None,
+             max_batches=None, return_per_class=False, device=None):
+    """The metrics dict of the configured dataset's protocol for the
+    weights of ``state`` (a ``TrainState``, or ``restore_for_eval``'s
+    Flax-layout arrays), their EMA with ``cfg.eval_ema``, over
+    ``eval_iter``, an iterator of numpy batches (``image``, ``label``,
+    ``mask``; ``anno`` for HICO, ``video_id`` for HMDB).  Runs on
+    ``device``: default the state's own, or ``cuda`` for arrays.
+    ``return_per_class`` adds the per-class AP vector.  Builds a model
+    for the call; :class:`Evaluator` builds one for many."""
+    return Evaluator(cfg, device=_state_device(state, device))(
+        state, eval_iter=eval_iter, max_batches=max_batches,
+        return_per_class=return_per_class)
+
+
+class Evaluator:
+    """Reusable evaluator: builds the model and its eval step once, on
+    ``device`` (default ``cuda``); each call loads the weights of the state
+    it is given into that model and evaluates a fresh pass of its
+    iterator."""
+
+    def __init__(self, cfg: config_lib.TrainConfig, device=None):
+        _check_ported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = build_model(cfg, device=self.device)
+        self.step_fn = (make_multicrop_eval_step(self.model)
+                        if _multicrop(cfg) else make_eval_step(self.model))
+
+    def logits(self, state, eval_iter=None, *, max_batches=None
+               ) -> dict[str, np.ndarray]:
+        """:func:`eval_logits` of the weights of ``state`` (see
+        :func:`evaluate`)."""
+        if eval_iter is None:
+            eval_iter = make_eval_input(self.cfg,
+                                        get_dataset(self.cfg.dataset))
+        _load_weights(self.model, state, self.cfg.eval_ema)
+        return eval_logits(self.step_fn, eval_iter, device=self.device,
+                           max_batches=max_batches)
+
+    def __call__(self, state, *, eval_iter=None, max_batches=None,
+                 return_per_class=False):
+        host = self.logits(state, eval_iter, max_batches=max_batches)
+        return compute_metrics(self.cfg, host,
+                               return_per_class=return_per_class)

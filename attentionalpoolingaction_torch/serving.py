@@ -9,12 +9,15 @@ Port of the JAX package's ``serving.py`` (the float, single-device path).
     into one device dispatch (bounded wait).
 
 The ``Predictor`` is built from Flax-layout (params, batch_stats) arrays
-through the weight bridge (``convert.py``).  Not ported yet: checkpoint
-restore, JPEG and video decode, int8, data-parallel serving, export.
+through the weight bridge (``convert.py``); ``load_predictor`` builds one
+from a checkpoint of the port (the latest step, a step, or the keep-best
+slot), and ``CheckpointFollower`` hot-swaps newer steps into it.  Not
+ported yet: JPEG and video decode, int8, data-parallel serving, export.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 import queue
 import threading
@@ -25,6 +28,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from attentionalpoolingaction_torch import checkpoint as ckpt_lib
 from attentionalpoolingaction_torch import config as config_lib
 from attentionalpoolingaction_torch.convert import load_flax_variables
 from attentionalpoolingaction_torch.data.datasets import get_dataset
@@ -32,6 +36,8 @@ from attentionalpoolingaction_torch.device import resolve_device
 from attentionalpoolingaction_torch.train import build_model, normalize_images
 
 DEFAULT_BUCKETS = (1, 8, 32, 128)
+
+log = logging.getLogger(__name__)
 
 
 class Overloaded(RuntimeError):
@@ -376,3 +382,96 @@ class DynamicBatcher:
                 for fut in futures:
                     if not fut.done():
                         fut.set_exception(exc)
+
+
+def deploy_params(restored, use_ema: bool):
+    """The (params, batch_stats) a deployment serves from a restored
+    step: the EMA shadow when requested, else the raw params.  Shared by
+    load_predictor and CheckpointFollower, so that a follow reload applies
+    the same choice as the initial load."""
+    if use_ema:
+        if restored.ema_params is None:
+            raise ValueError(
+                "use_ema=True but the checkpoint has no ema_params — "
+                "train with --set ema_decay=0.9999 (or similar) first")
+        return restored.ema_params, restored.batch_stats
+    return restored.params, restored.batch_stats
+
+
+class CheckpointFollower(threading.Thread):
+    """Continuous deployment: poll a ``checkpoint.CheckpointManager`` for
+    new steps and hot-swap them into a live Predictor
+    (:meth:`Predictor.reload`).  Point it at the rolling ``checkpoints/``
+    manager to track training, or at the ``checkpoints_best`` slot
+    (``manager_for_step(workdir, "best")``) to serve the best checkpoint.
+
+    A failed poll (a step pruned mid-read, transient IO) is logged and
+    retried next period; the predictor keeps serving the old weights."""
+
+    def __init__(self, predictor: "Predictor", manager, *,
+                 use_ema: bool = False, poll_seconds: float = 10.0):
+        super().__init__(daemon=True, name="ckpt-follower")
+        self._predictor = predictor
+        self._mgr = manager
+        self._use_ema = use_ema
+        self._poll = poll_seconds
+        self._stopev = threading.Event()
+
+    def poll_once(self) -> bool:
+        """One poll: reload and swap if a step newer than the served one
+        is committed.  Returns whether a swap happened."""
+        self._mgr.reload()
+        latest = self._mgr.latest_step()
+        served = getattr(self._predictor, "step", None)
+        if latest is None or (served is not None and latest <= served):
+            return False
+        restored = ckpt_lib.restore_for_eval(self._mgr, step=latest)
+        if restored is None:
+            return False
+        params, batch_stats = deploy_params(restored, self._use_ema)
+        self._predictor.reload(params, batch_stats, step=latest)
+        log.info("hot-reloaded checkpoint step %d", latest)
+        return True
+
+    def run(self):
+        while not self._stopev.wait(self._poll):
+            try:
+                self.poll_once()
+            except Exception:
+                log.exception("checkpoint follow poll failed; serving "
+                              "continues on the current weights")
+
+    def stop(self):
+        self._stopev.set()
+        if self.is_alive():
+            self.join(timeout=5)
+
+
+def load_predictor(cfg: config_lib.TrainConfig, *, step=None,
+                   int8: bool = False,
+                   buckets: Sequence[int] = DEFAULT_BUCKETS,
+                   calibration_files: Sequence[str] = (),
+                   data_parallel: bool = False,
+                   use_ema: bool = False, device=None) -> Predictor:
+    """Restore the latest (or ``step``) checkpoint under ``cfg.workdir``
+    and build a Predictor on ``device`` (default ``cuda``).  ``step`` may
+    also be the string ``"best"``: the keep-best slot
+    (``checkpoint.BestKeeper``).  ``use_ema`` serves the EMA weights.
+    ``int8``, ``calibration_files`` and ``data_parallel`` are not ported
+    yet and raise."""
+    if int8 or calibration_files:
+        raise NotImplementedError("int8 serving is not ported yet")
+    if data_parallel:
+        raise NotImplementedError("data-parallel serving is not ported yet")
+    mgr, step = ckpt_lib.manager_for_step(cfg.workdir, step)
+    restored = ckpt_lib.restore_for_eval(mgr, step=step)
+    if restored is None:
+        raise FileNotFoundError(f"no checkpoint under {mgr.directory}")
+    params, batch_stats = deploy_params(restored, use_ema)
+    predictor = Predictor(cfg, params, batch_stats, buckets=buckets,
+                          device=device)
+    # served-step bookkeeping: CheckpointFollower compares against this
+    # to decide when a newer committed step warrants a hot reload
+    predictor.step = int(restored.step)
+    predictor.stats.set_gauge("serving_checkpoint_step", int(restored.step))
+    return predictor

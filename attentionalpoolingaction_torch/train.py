@@ -17,18 +17,27 @@ Where optax and torch differ, the port follows optax:
     made before it;
   * torch SGD's momentum buffer (dampening 0) is optax's ``trace``.
 
+``train`` resumes from, and saves to, a ``checkpoint.CheckpointManager``
+and stops cleanly on SIGTERM; ``init_checkpoint`` starts a run from a
+TF-slim checkpoint or warm-starts it from a run of the port.
+
 Not ported yet, and raising ``NotImplementedError``: a mesh
-(``mesh_shape`` over more than one device) and ``zero1``, checkpoints
-(``init_checkpoint``, a checkpoint manager, the SIGTERM stop),
+(``mesh_shape`` over more than one device) and ``zero1``,
 ``bf16_backbone``, ``remat_units``, clips (``clip_frames`` > 1),
-``data_echo`` and the input pipeline (``train`` takes an iterator).
+``data_echo`` > 1 and the input pipeline (``train`` takes an iterator).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import math
+import os
+import pathlib
+import re
+import signal
+import threading
 import time
 from typing import Callable, Iterable, Iterator, Mapping
 
@@ -38,7 +47,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from attentionalpoolingaction_torch import config as config_lib
-from attentionalpoolingaction_torch.convert import load_flax_variables
+from attentionalpoolingaction_torch import checkpoint as ckpt_lib
+from attentionalpoolingaction_torch.convert import (
+    load_flax_variables,
+    state_dict_to_flax,
+)
 from attentionalpoolingaction_torch.data.datasets import (
     DatasetSpec,
     get_dataset,
@@ -257,20 +270,41 @@ def create_state(cfg: config_lib.TrainConfig, *, device=None,
     The weights are drawn as Flax draws them from ``cfg.seed``, through
     an explicit ``torch.Generator``, or come from ``variables``, Flax-layout
     ``(params, batch_stats)`` arrays carried across by the weight bridge.
-    ``init_checkpoint`` is not ported yet and raises."""
-    if cfg.init_checkpoint:
-        raise NotImplementedError(
-            "init_checkpoint is not ported yet (checkpoints); pass "
-            "variables= to start from Flax-layout arrays")
+
+    ``cfg.init_checkpoint`` then overlays pretrained weights, the heads
+    excluded (the reference's fine-tune init): a file path is a TF-slim
+    checkpoint (V2 prefix or V1 file), converted on the fly; a directory
+    is a port ``CheckpointManager`` directory of an earlier run, whose
+    latest step gives the backbone's parameters and BN statistics."""
     spec = get_dataset(cfg.dataset)
     generator = torch.Generator().manual_seed(cfg.seed)
     model = build_model(cfg, device=device, generator=generator)
     if variables is not None:
         load_flax_variables(model, *variables)
-    elif cfg.freeze_bn:
+    elif cfg.freeze_bn and not cfg.init_checkpoint:
+        # frozen BN normalizes with the RUNNING stats; without a
+        # pretrained init those are the (0, 1) init values
         log.warning(
-            "freeze_bn=True with no initial variables: BN will normalize "
-            "with init-value running stats")
+            "freeze_bn=True with no init_checkpoint: BN will normalize "
+            "with init-value running stats; the fine-tune presets expect "
+            "an ImageNet/slim init_checkpoint")
+    if cfg.init_checkpoint:
+        if os.path.isdir(cfg.init_checkpoint):
+            restored = ckpt_lib.restore_for_eval(
+                ckpt_lib.make_manager(cfg.init_checkpoint))
+            if restored is None:
+                raise ValueError(
+                    f"no checkpoint steps under {cfg.init_checkpoint}")
+            converted = {"params": restored.params,
+                         "batch_stats": restored.batch_stats}
+        else:
+            converted = ckpt_lib.convert_slim_checkpoint(
+                cfg.init_checkpoint, model_scope=cfg.backbone)
+        params, batch_stats = state_dict_to_flax(model.state_dict())
+        merged = ckpt_lib.merge_pretrained(
+            {"params": params, "batch_stats": batch_stats}, converted,
+            exclude=("head", "pose_head"))
+        load_flax_variables(model, merged["params"], merged["batch_stats"])
     ema = ({n: p.detach().clone() for n, p in model.named_parameters()}
            if cfg.ema_decay else None)
     return TrainState(step=0, model=model,
@@ -368,18 +402,49 @@ def batch_to_device(batch: Mapping, device) -> dict[str, torch.Tensor]:
     return out
 
 
+def _resume(cfg: config_lib.TrainConfig, state: TrainState,
+            manager) -> None:
+    """Restore the latest step of ``manager`` into ``state``, reconciling
+    an ``ema_decay`` toggled between the saved run and this one: off -> on
+    seeds the EMA from the restored parameters; on -> off leaves the saved
+    EMA unused (and not saved again)."""
+    has_ema = "ema_params" in ckpt_lib.saved_tree_keys(manager)
+    seed_ema = bool(cfg.ema_decay) and not has_ema
+    if seed_ema:
+        log.warning(
+            "resume: checkpoint has no ema_params but ema_decay=%s — "
+            "seeding EMA from the restored params at this step",
+            cfg.ema_decay)
+        state.ema_params = None
+    elif has_ema and not cfg.ema_decay:
+        log.warning(
+            "resume: checkpoint carries ema_params but ema_decay is "
+            "unset — the saved EMA will not be updated or re-saved")
+    ckpt_lib.restore(manager, state)
+    if seed_ema:
+        state.ema_params = {n: p.detach().clone()
+                            for n, p in state.model.named_parameters()}
+    log.info("resumed from checkpoint at step %d", state.step)
+
+
 def train(cfg: config_lib.TrainConfig, *, train_iter: Iterable,
           num_steps: int | None = None, hooks=(), device=None,
           checkpoint_manager=None, stop_event=None):
-    """Run ``num_steps`` (default ``cfg.num_steps``) train steps from a
-    fresh state on ``device`` (default ``cuda``) over ``train_iter``, an
-    iterator of numpy batches.  Every ``cfg.log_every`` steps and at the
-    last the metrics come to the host, are logged and join the returned
-    history; ``hooks`` are called ``hook(step, state, metrics)`` after
-    every step.  Returns ``(state, history)``."""
-    if checkpoint_manager is not None or stop_event is not None:
-        raise NotImplementedError(
-            "checkpoints and the SIGTERM stop are not ported yet")
+    """Run the training loop on ``device`` (default ``cuda``) over
+    ``train_iter``, an iterator of numpy batches, up to ``num_steps``
+    (default ``cfg.num_steps``) updates.  Every ``cfg.log_every`` steps and
+    at the last the metrics come to the host, are logged and join the
+    returned history; ``hooks`` are called ``hook(step, state, metrics)``
+    after every step.  Returns ``(state, history)``.
+
+    With a ``checkpoint_manager`` the run resumes from its latest step
+    (the learning rate keyed on the restored step), and saves every
+    ``cfg.checkpoint_every`` steps, at the last step and on a stop; an
+    iterator with ``get_state``/``set_state`` has its JSON state saved
+    beside each step and restored with it.  ``stop_event`` (a
+    ``threading.Event``): when set, by the caller or by the SIGTERM
+    handler installed here (on the main thread, with a manager), the loop
+    checkpoints the step in flight and returns."""
     if cfg.clip_frames > 1:
         raise NotImplementedError("clip training (clip_frames > 1) is not "
                                   "ported yet")
@@ -390,19 +455,84 @@ def train(cfg: config_lib.TrainConfig, *, train_iter: Iterable,
             "the input pipeline is not ported yet; pass train_iter")
     dev = resolve_device(device)
     state, spec = create_state(cfg, device=dev)
+    resume_step = (checkpoint_manager.latest_step()
+                   if checkpoint_manager is not None else None)
+    if resume_step is not None:
+        _resume(cfg, state, checkpoint_manager)
     step_fn = make_train_step(spec, cfg)
+
+    stateful_iter = train_iter if hasattr(train_iter, "get_state") else None
+    if stateful_iter is not None and resume_step is not None:
+        iter_path = _grain_state_path(checkpoint_manager, resume_step)
+        if iter_path.exists():
+            stateful_iter.set_state(json.loads(iter_path.read_text()))
+            log.info("resumed data iterator from %s", iter_path)
+
+    def save_checkpoint(at_step: int):
+        ckpt_lib.save(checkpoint_manager, state)
+        if stateful_iter is not None:
+            _grain_state_path(checkpoint_manager, at_step).write_text(
+                json.dumps(stateful_iter.get_state()))
+            _gc_grain_state(checkpoint_manager, keep_step=at_step)
+
+    # Preemptions arrive as SIGTERM.  The handler only sets the flag; the
+    # loop finishes the step in flight, saves it and returns, so that the
+    # restart resumes from the preemption point.
+    if stop_event is None:
+        stop_event = threading.Event()
+    prev_handler = None
+    if checkpoint_manager is not None:
+        try:
+            prev_handler = signal.signal(
+                signal.SIGTERM, lambda sig, frame: stop_event.set())
+        except ValueError:
+            pass  # not the main thread: rely on the caller's stop_event
+
     num_steps = num_steps or cfg.num_steps
     batches: Iterator = iter(train_iter)
     history = []
     t0 = time.time()
-    for _ in range(max(num_steps - state.step, 0)):
-        batch = batch_to_device(next(batches), dev)
-        state, metrics = step_fn(state, batch)
-        step = state.step
-        if step % cfg.log_every == 0 or step == num_steps:
-            metrics = {k: float(v) for k, v in metrics.items()}
-            log.info("step %d %s (%.2f s)", step, metrics, time.time() - t0)
-            history.append({"step": step, **metrics})
-        for hook in hooks:
-            hook(step, state, metrics)
+    try:
+        for _ in range(max(num_steps - state.step, 0)):
+            batch = batch_to_device(next(batches), dev)
+            state, metrics = step_fn(state, batch)
+            step = state.step
+            if step % cfg.log_every == 0 or step == num_steps:
+                metrics = {k: float(v) for k, v in metrics.items()}
+                log.info("step %d %s (%.2f s)", step, metrics,
+                         time.time() - t0)
+                history.append({"step": step, **metrics})
+            for hook in hooks:
+                hook(step, state, metrics)
+            # read the stop AFTER the hooks, so that a stop raised during
+            # this step (signal or hook) checkpoints THIS step
+            stopping = stop_event.is_set()
+            if checkpoint_manager is not None and (
+                    step % cfg.checkpoint_every == 0 or step == num_steps
+                    or stopping):
+                save_checkpoint(step)
+            if stopping:
+                log.warning(
+                    "stop requested (SIGTERM/preemption): checkpointed at "
+                    "step %d and exiting cleanly", step)
+                break
+    finally:
+        if prev_handler is not None:
+            signal.signal(signal.SIGTERM, prev_handler)
     return state, history
+
+
+def _grain_state_path(manager, step: int) -> pathlib.Path:
+    """The iterator state file beside the step directories, named as the
+    JAX package names process 0's (the port runs one process)."""
+    return pathlib.Path(manager.directory) / f"grain_iter_{step}_p0.json"
+
+
+def _gc_grain_state(manager, keep_step: int) -> None:
+    """Drop the iterator state files of pruned steps, so that no stale
+    file pairs with a deleted step; ``keep_step`` is the step just saved."""
+    keep = set(manager.all_steps()) | {keep_step}
+    for p in pathlib.Path(manager.directory).glob("grain_iter_*.json"):
+        m = re.fullmatch(r"grain_iter_(\d+)(?:_p\d+)?\.json", p.name)
+        if m and int(m.group(1)) not in keep:
+            p.unlink(missing_ok=True)

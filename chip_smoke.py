@@ -8,8 +8,9 @@ Phases; any failure raises and the process exits non-zero:
 1. Device: a CUDA card must be present; prints its name and power limit.
 2. Kernels: builds csrc/attn_pool.cu with nvcc (sm_90a), prints its
    registers and spills, and holds each kernel against its plain PyTorch
-   version at the serving shapes (B in {1, 8, 32}, N=49, F=2048, C=393,
-   P=1), at rank 5 (B=8; N=196, C=600 and N=225, C=393) and at the
+   version at the serving and eval shapes (B in {1, 8, 16, 32, 48}: the
+   serving buckets, an eval batch and a 3-crop eval batch; N=49, F=2048,
+   C=393, P=1), at rank 5 (B=8; N=196, C=600 and N=225, C=393) and at the
    hmdb51_clip8 clip (B=8, N=392, C=51, P=1), each with float32 and
    bfloat16 X.  Checks that two launches give the same bits.  Prints, per
    case, each kernel's launch plan, and for each kernel and for the
@@ -37,12 +38,30 @@ Phases; any failure raises and the process exits non-zero:
    A second, small case: the ``__graft_entry__.py`` config without its
    mesh (resnet_v1_50, 64 px, pose attention, rank 2, EMA 0.999, two
    microbatches a step), 2 steps card vs CPU, each kernel twice a step.
-5. A ``kernels`` JSON line (``launches`` from phase 3's serving run,
-   ``train_launches`` from phase 4's ``train``), then the last line
-   ``{"ok": true, "device": {...}}``.
+5. The checkpointed run: ``mpii_rank1_224`` at full width in a temporary
+   workdir, deleted at the end.  The seeded Flax-layout weights are saved
+   as a port checkpoint and the run warm-starts from it
+   (``init_checkpoint``).  ``train.train`` with a ``CheckpointManager``
+   (every 2 steps, 2 kept) gets a real SIGTERM from a hook at step 3: it
+   must stop there with steps {2, 3} on disk, and step 3 restored into a
+   fresh state must equal the live one bitwise; a second call resumes at
+   3 and runs to 6, keeping {4, 6}.  Prints the time of a save and of a
+   restore and the bytes of a step.  Then ``evaluate`` of step 6 over a
+   seeded 40-image uint8 MPII eval set (batches of 16, the last padded
+   with mask 0) on the card, against the same weights on the CPU (TF32
+   off), a 3-crop multicrop pass card vs CPU in the same way, and the
+   eval loop's images/s pipelined and serialized; ``BestKeeper`` twice (the second lower),
+   ``load_predictor(step="best")`` against the evaluator's softmax, and a
+   ``CheckpointFollower`` that swaps in a newer step (one more
+   ``train.train`` step) once.  Each kernel launches once a train step,
+   an eval batch and a dispatch.
+6. A ``kernels`` JSON line (``launches`` from phase 3's serving run,
+   ``train_launches`` from phase 4's ``train``, ``eval_launches`` from
+   phase 5's evaluation), then the last line ``{"ok": true, "device":
+   {...}}``.
 
-``--profile`` adds a torch.profiler breakdown of a call at each bucket and
-of one training step.
+``--profile`` adds a torch.profiler breakdown of a call at each bucket, of
+one training step and of a pipelined pass of phase 5's eval loop.
 """
 
 from __future__ import annotations
@@ -50,16 +69,21 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
 import numpy as np
 import torch
 
+from attentionalpoolingaction_torch import checkpoint
 from attentionalpoolingaction_torch import config as config_lib
 from attentionalpoolingaction_torch import convert
+from attentionalpoolingaction_torch import evaluate
 from attentionalpoolingaction_torch import serving
 from attentionalpoolingaction_torch import train
 from attentionalpoolingaction_torch.ops import _build
@@ -94,6 +118,19 @@ TRAIN_STAT_RTOL = 1e-3
 TRAIN_LEAF_L2 = 0.2
 TRAIN_TOTAL_L2 = 0.15
 TRAIN_HEAD_L2 = 4e-3
+# Phase 5: metrics of the card's and the CPU's logits.  The logits agree
+# within CPU_RTOL of the largest; a metric moves only where that flips the
+# order of two scores.  One swap moves one class's AP from 1/r to
+# 1/(r + 1) at most (0.5 at r = 1), over the >= 25 classes that have a
+# positive among 40 images: 0.02 of the mAP; accuracy moves by one image
+# in 40.
+EVAL_MAP_ATOL = 0.02
+EVAL_ACC_ATOL = 1 / 40 + 1e-9
+# load_predictor's probabilities against the softmax of the evaluator's
+# logits, both on the card, TF32 off: two float32 forwards (batch 8 and
+# batch 16) that differ in the order of summation; the CPU tests hold the
+# same pair to 1e-4.
+SERVE_PROB_ATOL = 1e-4
 GRAD_NAMES = ("x", "attn_w", "attn_b", "sal_w", "sal_b")
 SOURCE = "attentionalpoolingaction_torch/csrc/attn_pool.cu"
 REPLACES = {
@@ -214,8 +251,10 @@ def phase_kernels(timer):
 
     log(f"ColdTimer floor (an empty kernel between its events): "
         f"{timer(lambda: torch.cuda._sleep(1)):.4f} ms")
+    # B: the serving buckets 1/8/32, an eval batch of 16 and phase 5's
+    # 3-crop multicrop forward of 48
     cases = [(b, 49, 393, 1, dt) for dt in (torch.float32, torch.bfloat16)
-             for b in (1, 8, 32)]
+             for b in (1, 8, 16, 32, 48)]
     cases += [(8, n, c, 5, dt) for n, c in ((196, 600), (225, 393))
               for dt in (torch.float32, torch.bfloat16)]
     # the hmdb51_clip8 clip: 8 frames of 7x7 positions folded into N
@@ -347,9 +386,18 @@ def check_backward(timer, a, w_pfc, case, seed):
     leaves = [plain_in[k] for k in GRAD_NAMES]
     plain_ms = timer(lambda: torch.autograd.grad(plain_logits, leaves, g,
                                                  retain_graph=True))
+    # reads x, v, s, g, A (P, F, C), attn_b and sal_w once; writes dx (in
+    # x's dtype) and the four weight gradients once
+    xs = a["x"].element_size()
+    nbytes = 2 * b * n * f * xs + 4 * (b * p * f + b * p * n + b * c
+                                       + 2 * p * f * c + 2 * c * p
+                                       + 2 * f * p + p)
+    flops = 4 * b * p * f * c + 8 * b * n * f * p + 4 * b * c * p
+    bms, by = bound_ms(nbytes, flops)
     log(f"B{b:<3} N{n:<4} C{c:<4} P{p} {str(dt).removeprefix('torch.'):<9}"
-        f"{'backward':<18}{worst:<10.2e}{ms:<9.4f}{plain_ms:<10.4f}(torch "
-        f"ops; plain = autograd of the plain forward)")
+        f"{'backward':<18}{worst:<10.2e}{ms:<9.4f}{plain_ms:<10.4f}"
+        f"{'-':<10}{bms:<10.4f}{bms / ms:.1%} (torch ops; plain = autograd "
+        f"of the plain forward; bound by {by})")
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -749,11 +797,315 @@ def phase_train_profile(run):
         log(f"  {ms / total:6.1%} {ms:8.3f} ms  {e.count:4d}x  {e.key[:80]}")
 
 
+# -- phase 5 -----------------------------------------------------------------
+
+def eval_set(rng, n=40, batch=16, crops=0):
+    """A seeded uint8 MPII eval set in batches of ``batch``; the last
+    batch is padded with rows of mask 0."""
+    shape = (n, crops, 224, 224, 3) if crops else (n, 224, 224, 3)
+    images = rng.integers(0, 256, shape, np.uint8)
+    labels = rng.integers(0, 393, n).astype(np.int32)
+    out = []
+    for lo in range(0, n, batch):
+        b = {"image": images[lo:lo + batch], "label": labels[lo:lo + batch],
+             "mask": np.ones(min(batch, n - lo), np.float32)}
+        pad = batch - len(b["label"])
+        if pad:
+            b = {k: np.concatenate([v, np.zeros((pad,) + v.shape[1:],
+                                                v.dtype)])
+                 for k, v in b.items()}
+        out.append(b)
+    return out
+
+
+def state_tensors(state):
+    """Every tensor a TrainState holds, by name, and its step."""
+    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    named = dict(state.model.named_parameters())
+    for n, p in named.items():
+        if p in state.optimizer.state:
+            out[f"momentum.{n}"] = state.optimizer.state[p]["momentum_buffer"]
+    return out, state.step
+
+
+def counted(fn):
+    """``fn()``'s result and the kernel launches it made (counts set to 0
+    just before, read after a synchronize)."""
+    apc.reset_launch_counts()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, dict(apc.launch_counts)
+
+
+def expect_launches(what, launches, n):
+    if launches != {"saliency_summary": n, "project_logits": n}:
+        raise AssertionError(f"{what}: kernel launches {launches}, want {n} "
+                             "of each")
+
+
+def eval_serialized(step_fn, batches):
+    """The eval loop without its pipeline: each batch's logits are
+    fetched, by a blocking copy, before the next batch is dispatched."""
+    return [step_fn(train.batch_to_device({"image": b["image"]}, "cuda")
+                    ["image"]).to(torch.float32).cpu().numpy()
+            for b in batches]
+
+
+def eval_rate(step_fn, batches, pipelined, reps):
+    """Images/s of ``eval_logits`` (pipelined) or of ``eval_serialized``
+    over ``reps`` passes of ``batches``, counting the unpadded images."""
+    images = reps * sum(int(b["mask"].sum()) for b in batches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if pipelined:
+        evaluate.eval_logits(step_fn, batches * reps, device="cuda")
+    else:
+        eval_serialized(step_fn, batches * reps)
+    return images / (time.perf_counter() - t0)
+
+
+def profile_eval(step_fn, batches):
+    """Device time of one pipelined pass of ``batches`` through the eval
+    loop, and the device's busy share of the host's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        evaluate.eval_logits(step_fn, batches, device="cuda")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    if total == 0:
+        raise AssertionError("the profiler saw no device time")
+    log(f"profile: eval loop, {len(batches)} batches of 16 pipelined, "
+        f"{wall_ms:.3f} ms wall, {total:.3f} ms device time (device busy "
+        f"{total / wall_ms:.1%}), {sum(e.count for e in events)} device "
+        f"events")
+
+
+def check_eval_against_cpu(what, err, results, cpu_results):
+    """The card's eval against the CPU's on the same weights and images:
+    logits within CPU_RTOL, 40 examples, metrics within their tolerance."""
+    if not err < CPU_RTOL:
+        raise AssertionError(f"{what} logits, card vs CPU: {err:.2e}")
+    if results["num_examples"] != 40 or cpu_results["num_examples"] != 40:
+        raise AssertionError(f"{what}: num_examples is not 40")
+    for k, tol in (("mAP", EVAL_MAP_ATOL), ("accuracy", EVAL_ACC_ATOL)):
+        if not abs(results[k] - cpu_results[k]) <= tol:
+            raise AssertionError(f"{what} {k}: card {results[k]} vs CPU "
+                                 f"{cpu_results[k]} (tolerance {tol})")
+
+
+def phase_checkpointed_run(card, profile=False):
+    """mpii_rank1_224 at full width: stop by SIGTERM, resume, evaluate
+    (card vs CPU), keep the best, serve it and follow a newer step."""
+    t_phase = time.monotonic()
+    cfg = config_lib.get_config("mpii_rank1_224")
+    rng = np.random.default_rng(5)
+    out = {"config": "mpii_rank1_224", "card": card}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        # the seeded Flax-layout weights as step 0 of a port run, from
+        # which the run warm-starts (heads fresh, from cfg.seed)
+        init, _ = train.create_state(
+            cfg, device="cuda", variables=convert.random_flax_variables(
+                cfg.backbone, num_classes=393, rank=cfg.rank,
+                num_positions=49, seed=0))
+        checkpoint.save(checkpoint.make_manager(f"{workdir}/init"), init)
+        del init
+        run_cfg = dataclasses.replace(
+            cfg, workdir=workdir, init_checkpoint=f"{workdir}/init",
+            checkpoint_every=2, max_checkpoints=2, log_every=1,
+            eval_batch_size=16)
+        mgr = checkpoint.make_manager(f"{workdir}/checkpoints",
+                                      max_to_keep=2)
+        batches = [train_batch(rng, cfg) for _ in range(7)]
+
+        # -- stop by SIGTERM at step 3, then resume to 6 --------------------
+        def terminate_at_3(step, state, metrics):
+            if step == 3:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        (live, hist1), launches = counted(lambda: train.train(
+            run_cfg, train_iter=iter(batches), num_steps=6, device="cuda",
+            checkpoint_manager=mgr, hooks=[terminate_at_3]))
+        if live.step != 3 or mgr.all_steps() != [2, 3]:
+            raise AssertionError(f"SIGTERM at step 3: stopped at "
+                                 f"{live.step}, steps {mgr.all_steps()}")
+        expect_launches("train.train to the SIGTERM", launches, 3)
+        fresh, _ = train.create_state(cfg, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.restore(mgr, fresh, step=3)
+        torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t0
+        want, want_step = state_tensors(live)
+        got, got_step = state_tensors(fresh)
+        if got.keys() != want.keys() or got_step != want_step or not all(
+                torch.equal(got[k], want[k]) for k in want):
+            bad = [k for k in want if k not in got
+                   or not torch.equal(got[k], want[k])]
+            raise AssertionError(f"restored step 3 differs from the live "
+                                 f"state: step {got_step}, {bad[:5]}")
+        timing = checkpoint.make_manager(f"{workdir}/timing")
+        t0 = time.perf_counter()
+        checkpoint.save(timing, live)
+        out["save_s"] = time.perf_counter() - t0
+        out["step_bytes"] = os.path.getsize(
+            timing.step_dir(3) / checkpoint.CHECKPOINT_FILE)
+        log(f"checkpoint: save {out['save_s']:.3f} s, restore onto the card "
+            f"{out['restore_s']:.3f} s, {out['step_bytes']} bytes a step "
+            f"({len(want)} tensors, bitwise equal after restore) on {card}")
+        del fresh, live, timing
+
+        (state, hist2), launches = counted(lambda: train.train(
+            run_cfg, train_iter=iter(batches[3:6]), num_steps=6,
+            device="cuda", checkpoint_manager=mgr))
+        if state.step != 6 or mgr.all_steps() != [4, 6]:
+            raise AssertionError(f"resume: at step {state.step}, steps "
+                                 f"{mgr.all_steps()}, want 6 and [4, 6]")
+        expect_launches("train.train resumed 3 -> 6", launches, 3)
+        history = hist1 + hist2
+        if [h["step"] for h in history] != list(range(1, 7)) or not all(
+                np.isfinite(v) for h in history for v in h.values()):
+            raise AssertionError(f"train history {history}")
+        log("train: SIGTERM at 3, resumed to 6, losses " + ", ".join(
+            f"{h['loss/total']:.4f}" for h in history))
+
+        # -- evaluate step 6, card vs CPU -------------------------------------
+        torch.backends.cudnn.allow_tf32 = False
+        restored = checkpoint.restore_for_eval(mgr, 6)
+        ev_set = eval_set(rng)
+        evaluator = evaluate.Evaluator(run_cfg, device="cuda")
+        results, launches = counted(
+            lambda: evaluator(restored, eval_iter=iter(ev_set)))
+        expect_launches("evaluate (3 batches)", launches, len(ev_set))
+        out["eval_launches"] = launches
+        card_host = evaluator.logits(restored, iter(ev_set))
+        cpu_host = evaluate.Evaluator(run_cfg, device="cpu").logits(
+            restored, iter(ev_set))
+        real = card_host["mask"].astype(bool)
+        err = float(np.abs(card_host["logits"] - cpu_host["logits"])[real]
+                    .max() / np.abs(cpu_host["logits"][real]).max())
+        cpu_results = evaluate.compute_metrics(run_cfg, cpu_host)
+        out.update(eval=results, eval_cpu=cpu_results, eval_logits_err=err)
+        log(f"evaluate step 6 (40 images, batches of 16): card {results}; "
+            f"CPU {cpu_results}; logits relative error {err:.2e} (tolerance "
+            f"{CPU_RTOL:g}, TF32 off)")
+        check_eval_against_cpu("evaluate", err, results, cpu_results)
+
+        # -- 3-crop multicrop, card vs CPU (TF32 off) -------------------------
+        # 48 crops a forward: the kernels at B=48 (phase 2 holds them
+        # against their plain versions there too)
+        mc_cfg = dataclasses.replace(run_cfg, eval_multicrop=3)
+        mc_set = eval_set(rng, crops=3)
+        mc_eval = evaluate.Evaluator(mc_cfg, device="cuda")
+        mc_eval.logits(restored, iter(mc_set))                 # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mc_host, launches = counted(
+            lambda: mc_eval.logits(restored, iter(mc_set)))
+        mc_s = time.perf_counter() - t0
+        expect_launches("3-crop multicrop eval (3 batches)", launches,
+                        len(mc_set))
+        mc_cpu = evaluate.Evaluator(mc_cfg, device="cpu").logits(
+            restored, iter(mc_set))
+        real = mc_host["mask"].astype(bool)
+        mc_err = float(np.abs(mc_host["logits"] - mc_cpu["logits"])[real]
+                       .max() / np.abs(mc_cpu["logits"][real]).max())
+        mc_results = evaluate.compute_metrics(mc_cfg, mc_host)
+        mc_cpu_results = evaluate.compute_metrics(mc_cfg, mc_cpu)
+        out["multicrop3"] = dict(mc_results, images_per_s=40 / mc_s,
+                                 logits_err=mc_err)
+        log(f"3-crop multicrop eval (batches of 16 images, 48 crops a "
+            f"forward): card {mc_results}; CPU {mc_cpu_results}; logits "
+            f"relative error {mc_err:.2e} (tolerance {CPU_RTOL:g}, TF32 "
+            f"off); {40 / mc_s:.1f} images/s ({120 / mc_s:.1f} crops/s, "
+            f"TF32 off)")
+        check_eval_against_cpu("multicrop", mc_err, mc_results,
+                               mc_cpu_results)
+        del mc_eval
+
+        # -- the eval loop's rate, pipelined and serialized (TF32 on) --------
+        torch.backends.cudnn.allow_tf32 = True
+        reps = 5
+        eval_rate(evaluator.step_fn, ev_set, True, 1)          # warm
+        rates = {True: [], False: []}
+        for order in ((True, False), (False, True)) * 3:
+            for pipelined in order:
+                rates[pipelined].append(
+                    eval_rate(evaluator.step_fn, ev_set, pipelined, reps))
+        piped, serial = (float(np.median(rates[k])) for k in (True, False))
+        out.update(eval_images_per_s_pipelined=piped,
+                   eval_images_per_s_serialized=serial,
+                   eval_pipeline_ratio=piped / serial)
+        log(f"eval loop, {reps} passes of the 40 images (15 batches of 16) "
+            f"a timing, 6 timings each, in turns: pipelined {piped:.1f} "
+            f"images/s (runs {', '.join(f'{r:.1f}' for r in rates[True])}), "
+            f"serialized {serial:.1f} (runs "
+            f"{', '.join(f'{r:.1f}' for r in rates[False])}), ratio "
+            f"{piped / serial:.3f} (cudnn TF32 on) on {card}")
+        if profile:
+            profile_eval(evaluator.step_fn, ev_set * reps)
+
+        # -- keep-best, serve it, follow a newer step (TF32 off) -------------
+        torch.backends.cudnn.allow_tf32 = False
+        keeper = checkpoint.BestKeeper(workdir)
+        lower = dict(results, mAP=results["mAP"] - 0.1)
+        if not keeper.update(6, results, state) or \
+                keeper.update(7, lower, state) or \
+                keeper.best()["step"] != 6:
+            raise AssertionError(f"BestKeeper: best {keeper.best()}")
+        pred = serving.load_predictor(run_cfg, step="best", buckets=(8,),
+                                      device="cuda")
+        if pred.step != keeper.best()["step"]:
+            raise AssertionError(f"load_predictor(step='best') serves step "
+                                 f"{pred.step}")
+        images = np.concatenate([b["image"] for b in ev_set])[:8]
+        probs, launches = counted(lambda: pred.predict_arrays(images))
+        expect_launches("load_predictor dispatch", launches, 1)
+        logits = card_host["logits"][:8].astype(np.float64)
+        e = np.exp(logits - logits.max(-1, keepdims=True))
+        perr = float(np.abs(probs - e / e.sum(-1, keepdims=True)).max())
+        log(f"load_predictor(step='best') serves step {pred.step}; "
+            f"probabilities vs the evaluator's softmax, 8 images: max abs "
+            f"difference {perr:.2e} (tolerance {SERVE_PROB_ATOL:g})")
+        if not perr < SERVE_PROB_ATOL:
+            raise AssertionError(f"served probabilities differ by {perr}")
+
+        follower = serving.CheckpointFollower(pred, mgr)
+        if follower.poll_once():
+            raise AssertionError("the follower swapped with no newer step")
+        (state, _), launches = counted(lambda: train.train(
+            run_cfg, train_iter=iter(batches[6:]), num_steps=7,
+            device="cuda", checkpoint_manager=mgr))
+        expect_launches("train.train resumed 6 -> 7", launches, 1)
+        swapped, again = follower.poll_once(), follower.poll_once()
+        if not swapped or again or pred.step != 7:
+            raise AssertionError(f"follower: swapped {swapped}, again "
+                                 f"{again}, serving step {pred.step}")
+        probs7 = pred.predict_arrays(images)
+        if not (np.isfinite(probs7).all() and np.allclose(
+                probs7.sum(-1), 1.0, atol=1e-4)):
+            raise AssertionError("bad probabilities after the swap")
+        log(f"CheckpointFollower: swapped to step {pred.step} once, not on "
+            f"the second poll")
+        torch.backends.cudnn.allow_tf32 = True
+        del pred, evaluator, state
+    out["phase_s"] = time.monotonic() - t_phase
+    log(f"phase 5 took {out['phase_s']:.1f} s (workdir removed)")
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="add a profiler breakdown of a call at "
-                        "each bucket and of one train step")
+                        "each bucket, of one train step and of the eval "
+                        "loop")
     args = parser.parse_args()
 
     card = phase_device()
@@ -767,6 +1119,8 @@ def main():
     phase_training_small()
     if args.profile:
         phase_train_profile(run)
+    del run["state"], run["batch"]
+    ckpt_run = phase_checkpointed_run(card, profile=args.profile)
 
     kernels = []
     for name in ("saliency_summary", "project_logits"):
@@ -783,11 +1137,14 @@ def main():
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
             "bound_share": main_row["bound_share"],
-            "train_launches": run["launches"][name]})
+            "train_launches": run["launches"][name],
+            "eval_launches": ckpt_run["eval_launches"][name]})
     log(json.dumps({"training": {
         "config": "mpii_rank1_224", "card": card,
         "step_ms": run["step_ms"], "images_per_s": run["images_per_s"],
         "card_vs_cpu": run["errs"], "launches": run["launches"]}}))
+    log(json.dumps({"checkpointed_run": {
+        k: v for k, v in ckpt_run.items() if k != "eval_launches"}}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
-"""The port imports nothing of JAX or of the JAX package: a static scan of
-every module of attentionalpoolingaction_torch/ and of chip_smoke.py.
-Static, because an interpreter may have JAX loaded already."""
+"""The port imports nothing of JAX or of the JAX package, nor TensorFlow
+or Orbax (the card's machine has neither): a static scan of every module
+of attentionalpoolingaction_torch/ and of chip_smoke.py.  Static, because
+an interpreter may have JAX loaded already."""
 
 import ast
 import pathlib
@@ -8,7 +9,8 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "attentionalpoolingaction_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "attentionalpoolingaction_tpu",
+             "tensorflow", "orbax"}
 FILES = sorted((ROOT / "attentionalpoolingaction_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -37,6 +39,7 @@ def test_no_jax_imports(path):
 def test_scan_sees_every_module():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for mod in ("config", "convert", "serving", "train", "precision",
+                "checkpoint", "tf_checkpoint", "evaluate", "ops/metrics",
                 "ops/attn_pool",
                 "ops/attn_pool_cuda", "ops/heatmap", "models/resnet",
                 "models/heads", "models/action_model", "models/factory"):
@@ -46,6 +49,7 @@ def test_scan_sees_every_module():
 def test_scan_catches_a_jax_import(tmp_path):
     p = tmp_path / "m.py"
     p.write_text("import os\nfrom jax import numpy\n"
-                 "import attentionalpoolingaction_tpu.config\n")
+                 "import attentionalpoolingaction_tpu.config\n"
+                 "import tensorflow as tf\nfrom orbax import checkpoint\n")
     assert set(imported_roots(p)) & FORBIDDEN == {
-        "jax", "attentionalpoolingaction_tpu"}
+        "jax", "attentionalpoolingaction_tpu", "tensorflow", "orbax"}

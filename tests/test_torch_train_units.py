@@ -368,7 +368,7 @@ def test_train_loop_logs_and_calls_hooks():
 
 @pytest.mark.parametrize("kw, where", [
     (dict(mesh_shape=(2,)), "step"), (dict(zero1=True), "step"),
-    (dict(remat_units=True), "step"), (dict(init_checkpoint="x"), "state"),
+    (dict(remat_units=True), "step"), (dict(), "pipeline"),
     (dict(clip_frames=8), "train"), (dict(data_echo=2), "train"),
     (dict(bf16_backbone=True), "state")])
 def test_unported_options_raise(kw, where):
@@ -378,5 +378,7 @@ def test_unported_options_raise(kw, where):
             train.make_train_step(train.get_dataset("mpii"), cfg)
         elif where == "state":
             train.create_state(cfg, device="cpu")
+        elif where == "pipeline":
+            train.train(cfg, train_iter=None, device="cpu")
         else:
             train.train(cfg, train_iter=iter([]), device="cpu")
