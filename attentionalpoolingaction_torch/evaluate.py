@@ -10,9 +10,13 @@ once), so evaluating the live training model leaves its parameters, BN
 statistics and train mode as they were, and ``eval_ema`` does not write the
 EMA into the training parameters.
 
+Without an ``eval_iter`` the split of ``cfg.eval_pattern`` is read through
+the port's input pipeline (:func:`make_eval_input`), decoded on the
+device.
+
 Not ported yet, and raising ``NotImplementedError``: ``eval_int8``
-(``make_int8_eval_step``), building the input without an ``eval_iter``
-(``make_eval_input``; the input pipeline) and multi-process gathers.
+(``make_int8_eval_step``), clip eval (``clip_frames`` > 1) and
+multi-process gathers.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 
 from attentionalpoolingaction_torch import config as config_lib
 from attentionalpoolingaction_torch.convert import load_flax_variables
+from attentionalpoolingaction_torch.data import grain_pipeline
 from attentionalpoolingaction_torch.data.datasets import get_dataset
 from attentionalpoolingaction_torch.device import resolve_device
 from attentionalpoolingaction_torch.ops import metrics as metrics_lib
@@ -78,10 +83,31 @@ def make_int8_eval_step(cfg: config_lib.TrainConfig, mesh=None,
 
 
 def make_eval_input(cfg: config_lib.TrainConfig, spec,
-                    shard_by_process: bool = False):
-    raise NotImplementedError(
-        "the eval input pipeline is not ported yet; pass eval_iter, an "
-        "iterator of numpy batches")
+                    shard_by_process: bool = False, *, device=None):
+    """One pass over ``cfg.eval_pattern`` in file order, decoded and cropped
+    on ``device`` (default ``cuda``): central crops (uint8 with
+    ``transfer_uint8``), or ``eval_multicrop`` crops an example, in
+    batches of ``eval_batch_size`` with the last padded (``mask`` 0).
+    ``input_pipeline`` "tfdata" and "grain" both read through the port's
+    pipeline.  The port runs one process, which reads the whole split
+    whatever ``shard_by_process`` says.  Clip eval is not ported yet and
+    raises."""
+    if cfg.eval_clips > 1 and cfg.clip_frames <= 1:
+        raise ValueError(
+            f"eval_clips={cfg.eval_clips} requires clip mode "
+            "(clip_frames > 1) — per-frame eval would silently ignore it")
+    if cfg.clip_frames > 1:
+        raise NotImplementedError("clip eval (clip_frames > 1) is not "
+                                  "ported yet")
+    if not cfg.eval_pattern:
+        raise ValueError("no eval_iter and no cfg.eval_pattern")
+    kw = dict(batch_size=cfg.eval_batch_size, image_size=cfg.image_size,
+              resize_min=cfg.resize_min_resolved, device=device)
+    if _multicrop(cfg):
+        return grain_pipeline.make_multicrop_eval_dataset(
+            cfg.eval_pattern, spec, num_crops=cfg.eval_multicrop, **kw)
+    return grain_pipeline.make_eval_dataset(
+        cfg.eval_pattern, spec, transfer_uint8=cfg.transfer_uint8, **kw)
 
 
 def _multicrop(cfg: config_lib.TrainConfig) -> bool:
@@ -248,7 +274,8 @@ def evaluate(cfg: config_lib.TrainConfig, state, *, eval_iter=None,
     weights of ``state`` (a ``TrainState``, or ``restore_for_eval``'s
     Flax-layout arrays), their EMA with ``cfg.eval_ema``, over
     ``eval_iter``, an iterator of numpy batches (``image``, ``label``,
-    ``mask``; ``anno`` for HICO, ``video_id`` for HMDB).  Runs on
+    ``mask``; ``anno`` for HICO, ``video_id`` for HMDB), or by default
+    the records of ``cfg.eval_pattern`` (:func:`make_eval_input`).  Runs on
     ``device``: default the state's own, or ``cuda`` for arrays.
     ``return_per_class`` adds the per-class AP vector.  Builds a model
     for the call; :class:`Evaluator` builds one for many."""
@@ -277,7 +304,8 @@ class Evaluator:
         :func:`evaluate`)."""
         if eval_iter is None:
             eval_iter = make_eval_input(self.cfg,
-                                        get_dataset(self.cfg.dataset))
+                                        get_dataset(self.cfg.dataset),
+                                        device=self.device)
         _load_weights(self.model, state, self.cfg.eval_ema)
         return eval_logits(self.step_fn, eval_iter, device=self.device,
                            max_batches=max_batches)

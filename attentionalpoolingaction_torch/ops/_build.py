@@ -1,11 +1,15 @@
-"""Build-at-first-use loader for the CUDA kernels in ``csrc/``.
+"""Build-at-first-use loader for the native sources in ``csrc/``.
 
-``nvcc`` compiles ``csrc/attn_pool.cu`` for ``sm_90a`` into a shared
-library with a plain C interface, which is loaded with ``ctypes``.  The
-library lands in ``attentionalpoolingaction_torch/_build/`` under a name
-that carries a hash of the source and the flags, so an edited source is
-never served by a stale build.  Nothing is compiled when a module is
-imported: the first kernel launch builds.
+Each source compiles into a shared library with a plain C interface,
+which is loaded with ``ctypes``: ``csrc/attn_pool.cu`` (the attentional
+pooling kernels) and ``csrc/jpeg_decode.cu`` (the nvJPEG binding) with
+``nvcc`` for ``sm_90a``, ``csrc/tfrecord_index.cc`` (the indexed record
+reader) with the host's C++ compiler.  A library lands in
+``attentionalpoolingaction_torch/_build/`` under a name that carries a hash
+of its source and flags, so an edited source is never served by a stale
+build.  Nothing is compiled when a module is imported: the first call that
+needs a library builds it, and two builds may run at once (each in its own
+thread, or its own process).
 """
 
 from __future__ import annotations
@@ -17,62 +21,107 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Callable
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
-SOURCE = PACKAGE_DIR / "csrc" / "attn_pool.cu"
+CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-build_log = ""  # what nvcc printed (registers, shared memory, spills);
-                # kept beside the library as <name>.log and read back
+CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 
 
-def _nvcc() -> str:
+def cuda_home() -> Path:
     for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
         if cand and (Path(cand) / "bin" / "nvcc").exists():
-            return str(Path(cand) / "bin" / "nvcc")
+            return Path(cand)
     found = shutil.which("nvcc")
     if found is None:
         raise RuntimeError(
-            "nvcc not found (set CUDA_HOME): the attentional pooling "
-            "kernels are built from csrc/ at first use")
-    return found
+            "nvcc not found (set CUDA_HOME): the port's CUDA sources are "
+            "built from csrc/ at first use")
+    return Path(found).resolve().parent.parent
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libattn_pool-{digest[:16]}.so"
+def nvcc() -> str:
+    return str(cuda_home() / "bin" / "nvcc")
 
 
-def build() -> Path:
-    """Compile the kernels unless a build of this exact source exists."""
-    global build_log
-    out = library_path()
-    log = out.with_suffix(".log")
-    if out.exists():
-        build_log = log.read_text() if log.exists() else ""
+def cxx() -> str:
+    for name in (os.environ.get("CXX"), "g++", "c++", "clang++"):
+        found = name and shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no C++ compiler found (set CXX): "
+                       "csrc/tfrecord_index.cc is built at first use")
+
+
+class NativeLibrary:
+    """One source of ``csrc/`` and the library built from it.
+
+    ``compiler`` gives the compiler's path; ``flags`` are hashed with the
+    source; ``link_flags(compiler)`` adds flags that depend on where the
+    toolkit lies (library paths), which the hash does not need; ``bind``
+    sets the ``argtypes`` and ``restype`` of every entry point."""
+
+    def __init__(self, name: str, source: Path, *,
+                 compiler: Callable[[], str], flags: tuple[str, ...],
+                 bind: Callable[[ctypes.CDLL], ctypes.CDLL],
+                 link_flags: Callable[[str], tuple[str, ...]] = lambda c: ()):
+        self.name, self.source, self.flags = name, Path(source), flags
+        self._compiler, self._bind, self._link_flags = \
+            compiler, bind, link_flags
+        self._lock = threading.Lock()
+        self._lib: ctypes.CDLL | None = None
+        # what the compiler printed (for nvcc -Xptxas -v: registers, shared
+        # memory, spills); kept beside the library as <name>.log
+        self.build_log = ""
+
+    def library_path(self) -> Path:
+        digest = hashlib.sha256(self.source.read_bytes()
+                                + " ".join(self.flags).encode()).hexdigest()
+        return BUILD_DIR / f"lib{self.name}-{digest[:16]}.so"
+
+    def build(self) -> Path:
+        """Compile the source unless a build of this exact source exists."""
+        out = self.library_path()
+        log = out.with_suffix(".log")
+        if out.exists():
+            self.build_log = log.read_text() if log.exists() else ""
+            return out
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{os.getpid()}.{threading.get_ident()}"
+        tmp = out.with_suffix(f".{tag}.tmp")
+        compiler = self._compiler()
+        proc = subprocess.run(
+            [compiler, *self.flags, "-o", str(tmp), str(self.source),
+             *self._link_flags(compiler)],
+            capture_output=True, text=True)
+        self.build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"{Path(compiler).name} failed on {self.source}:\n"
+                f"{self.build_log}")
+        # the log first: a loader that finds the library finds its log too
+        log_tmp = log.with_suffix(f".{tag}.logtmp")
+        log_tmp.write_text(self.build_log)
+        os.replace(log_tmp, log)
+        os.replace(tmp, out)   # atomic: a concurrent loader sees all or none
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{build_log}")
-    # the log first: a loader that finds the library finds its log too
-    log_tmp = log.with_suffix(f".{os.getpid()}.logtmp")
-    log_tmp.write_text(build_log)
-    os.replace(log_tmp, log)
-    os.replace(tmp, out)      # atomic: a concurrent loader sees all or none
-    return out
+
+    def load(self) -> ctypes.CDLL:
+        """The library, built on the first call."""
+        with self._lock:
+            if self._lib is None:
+                self._lib = self._bind(ctypes.CDLL(str(self.build())))
+            return self._lib
+
+    def loaded(self) -> bool:
+        return self._lib is not None
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+def _bind_attn_pool(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     ll = ctypes.c_longlong
     lib.apa_saliency_summary.argtypes = [p, i, p, p, p, p, i, i, i, i,
@@ -88,14 +137,6 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, built on the first call."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            _lib = _bind(ctypes.CDLL(str(build())))
-        return _lib
+ATTN_POOL = NativeLibrary("attn_pool", CSRC / "attn_pool.cu", compiler=nvcc,
+                          flags=NVCC_FLAGS, bind=_bind_attn_pool)
 
-
-def loaded() -> bool:
-    return _lib is not None

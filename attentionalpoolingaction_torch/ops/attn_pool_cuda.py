@@ -114,7 +114,7 @@ def _check_cuda_operands(x: torch.Tensor, *others: torch.Tensor) -> None:
 
 def _raise_if(err: int, what: str) -> None:
     if err != 0:
-        msg = _build.load().apa_error_string(err).decode()
+        msg = _build.ATTN_POOL.load().apa_error_string(err).decode()
         raise RuntimeError(f"{what} launch failed: {msg} (cudaError {err})")
 
 
@@ -300,7 +300,7 @@ def saliency_summary(x, sal_w, sal_b):
     s = torch.empty((b, p, n), dtype=torch.float32, device=x.device)
     if b == 0:
         return v, s
-    lib = _build.load()
+    lib = _build.ATTN_POOL.load()
     with torch.cuda.device(x.device):
         err = lib.apa_saliency_summary(
             x.data_ptr(), _X_DTYPES[x.dtype], sal_w.data_ptr(),
@@ -342,7 +342,7 @@ def project_logits(v, s, w_pfc, attn_b):
     logits = torch.empty((b, c), dtype=torch.float32, device=v.device)
     if b == 0:
         return logits
-    lib = _build.load()
+    lib = _build.ATTN_POOL.load()
     with torch.cuda.device(v.device):
         err = lib.apa_project_logits(
             v.data_ptr(), s.data_ptr(), w_pfc.data_ptr(), attn_b.data_ptr(),

@@ -19,12 +19,15 @@ Where optax and torch differ, the port follows optax:
 
 ``train`` resumes from, and saves to, a ``checkpoint.CheckpointManager``
 and stops cleanly on SIGTERM; ``init_checkpoint`` starts a run from a
-TF-slim checkpoint or warm-starts it from a run of the port.
+TF-slim checkpoint or warm-starts it from a run of the port.  Without an
+iterator it reads ``cfg.train_pattern`` through the port's input pipeline
+(``data/grain_pipeline.py``, JPEG decode on the device), whose position
+is saved with each checkpoint; ``data_echo`` repeats each batch.
 
 Not ported yet, and raising ``NotImplementedError``: a mesh
 (``mesh_shape`` over more than one device) and ``zero1``,
-``bf16_backbone``, ``remat_units``, clips (``clip_frames`` > 1),
-``data_echo`` > 1 and the input pipeline (``train`` takes an iterator).
+``bf16_backbone``, ``remat_units``, clips (``clip_frames`` > 1) and the
+video input path.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ import re
 import signal
 import threading
 import time
-from typing import Callable, Iterable, Iterator, Mapping
+from typing import Callable, Iterable, Mapping
 
 import numpy as np
 import torch
@@ -52,6 +55,7 @@ from attentionalpoolingaction_torch.convert import (
     load_flax_variables,
     state_dict_to_flax,
 )
+from attentionalpoolingaction_torch.data import grain_pipeline, pipeline
 from attentionalpoolingaction_torch.data.datasets import (
     DatasetSpec,
     get_dataset,
@@ -391,15 +395,10 @@ def make_train_step(spec: DatasetSpec, cfg: config_lib.TrainConfig):
 # -- loop ---------------------------------------------------------------------
 
 def batch_to_device(batch: Mapping, device) -> dict[str, torch.Tensor]:
-    """A numpy batch as tensors on ``device``; to a CUDA device through
-    pinned memory, without waiting for the copy."""
-    device = torch.device(device)
-    out = {}
-    for k, v in batch.items():
-        t = torch.as_tensor(v)
-        out[k] = (t.pin_memory().to(device, non_blocking=True)
-                  if device.type == "cuda" else t.to(device))
-    return out
+    """A batch as tensors on ``device``: host arrays to a CUDA device
+    through pinned memory, without waiting for the copy; tensors already
+    on ``device`` pass through untouched."""
+    return pipeline.to_device(batch, torch.device(device))
 
 
 def _resume(cfg: config_lib.TrainConfig, state: TrainState,
@@ -427,32 +426,65 @@ def _resume(cfg: config_lib.TrainConfig, state: TrainState,
     log.info("resumed from checkpoint at step %d", state.step)
 
 
-def train(cfg: config_lib.TrainConfig, *, train_iter: Iterable,
+def _train_input(cfg: config_lib.TrainConfig, spec: DatasetSpec,
+                 train_iter: Iterable | None, dev: torch.device):
+    """``(batches, stateful, owned)``: the iterator the loop pulls from
+    (prefetched to ``dev``, echoed with ``data_echo``), the outermost
+    wrapper whose state is checkpointed (None for a stateless iterator)
+    and the pipeline this call built (None for the caller's)."""
+    owned = None
+    if train_iter is None:
+        if not cfg.train_pattern:
+            raise ValueError("no train_iter and no cfg.train_pattern")
+        owned = train_iter = grain_pipeline.make_train_iterator(
+            cfg.train_pattern, spec, batch_size=cfg.batch_size,
+            image_size=cfg.image_size, resize_min=cfg.resize_min_resolved,
+            resize_max=cfg.resize_max_resolved, seed=cfg.seed,
+            num_workers=cfg.grain_workers,
+            transfer_uint8=cfg.transfer_uint8,
+            video_sampling=spec.is_video and cfg.video_frame_sampling,
+            device=dev)
+    if hasattr(train_iter, "get_state"):
+        # the state checkpointed is the last CONSUMED batch's, not the
+        # prefetch position, so the resume is exact
+        batches = stateful = pipeline.StatefulPrefetchIterator(
+            train_iter, device=dev)
+    else:
+        batches, stateful = pipeline.prefetch_to_device(
+            train_iter, device=dev), None
+    if cfg.data_echo > 1:
+        # above the prefetch: a repeat reuses the batch on the device
+        batches = pipeline.EchoIterator(batches, cfg.data_echo)
+        if stateful is not None:
+            stateful = batches
+    return batches, stateful, owned
+
+
+def train(cfg: config_lib.TrainConfig, *, train_iter: Iterable | None = None,
           num_steps: int | None = None, hooks=(), device=None,
           checkpoint_manager=None, stop_event=None):
-    """Run the training loop on ``device`` (default ``cuda``) over
-    ``train_iter``, an iterator of numpy batches, up to ``num_steps``
-    (default ``cfg.num_steps``) updates.  Every ``cfg.log_every`` steps and
-    at the last the metrics come to the host, are logged and join the
+    """Run the training loop on ``device`` (default ``cuda``) up to
+    ``num_steps`` (default ``cfg.num_steps``) updates, over ``train_iter``
+    (an iterator of batches of numpy arrays or tensors) or, without one,
+    over the records of ``cfg.train_pattern`` through the port's input
+    pipeline.  Batches are prefetched to the device; with ``data_echo`` >
+    1 each feeds that many steps.  Every ``cfg.log_every`` steps and at
+    the last the metrics come to the host, are logged and join the
     returned history; ``hooks`` are called ``hook(step, state, metrics)``
     after every step.  Returns ``(state, history)``.
 
     With a ``checkpoint_manager`` the run resumes from its latest step
     (the learning rate keyed on the restored step), and saves every
-    ``cfg.checkpoint_every`` steps, at the last step and on a stop; an
-    iterator with ``get_state``/``set_state`` has its JSON state saved
-    beside each step and restored with it.  ``stop_event`` (a
+    ``cfg.checkpoint_every`` steps, at the last step and on a stop; a
+    stateful iterator (the pipeline's, or one with
+    ``get_state``/``set_state``) has its JSON state saved beside each step
+    and restored with it into the outermost wrapper.  ``stop_event`` (a
     ``threading.Event``): when set, by the caller or by the SIGTERM
     handler installed here (on the main thread, with a manager), the loop
     checkpoints the step in flight and returns."""
     if cfg.clip_frames > 1:
         raise NotImplementedError("clip training (clip_frames > 1) is not "
                                   "ported yet")
-    if cfg.data_echo > 1:
-        raise NotImplementedError("data_echo is not ported yet")
-    if train_iter is None:
-        raise NotImplementedError(
-            "the input pipeline is not ported yet; pass train_iter")
     dev = resolve_device(device)
     state, spec = create_state(cfg, device=dev)
     resume_step = (checkpoint_manager.latest_step()
@@ -461,11 +493,12 @@ def train(cfg: config_lib.TrainConfig, *, train_iter: Iterable,
         _resume(cfg, state, checkpoint_manager)
     step_fn = make_train_step(spec, cfg)
 
-    stateful_iter = train_iter if hasattr(train_iter, "get_state") else None
+    batches, stateful_iter, owned = _train_input(cfg, spec, train_iter, dev)
     if stateful_iter is not None and resume_step is not None:
         iter_path = _grain_state_path(checkpoint_manager, resume_step)
         if iter_path.exists():
-            stateful_iter.set_state(json.loads(iter_path.read_text()))
+            stateful_iter.set_state(_normalize_iter_state(
+                json.loads(iter_path.read_text()), cfg.data_echo))
             log.info("resumed data iterator from %s", iter_path)
 
     def save_checkpoint(at_step: int):
@@ -489,7 +522,6 @@ def train(cfg: config_lib.TrainConfig, *, train_iter: Iterable,
             pass  # not the main thread: rely on the caller's stop_event
 
     num_steps = num_steps or cfg.num_steps
-    batches: Iterator = iter(train_iter)
     history = []
     t0 = time.time()
     try:
@@ -519,7 +551,30 @@ def train(cfg: config_lib.TrainConfig, *, train_iter: Iterable,
     finally:
         if prev_handler is not None:
             signal.signal(signal.SIGTERM, prev_handler)
+        if owned is not None:
+            owned.close()
     return state, history
+
+
+def _normalize_iter_state(state, data_echo: int):
+    """Reconcile a checkpointed iterator state with the CURRENT
+    ``data_echo`` (the toggle may change across a restart).  Echo states
+    are ``{"inner_before", "phase"}``, plain ones the inner iterator's
+    own; echo->echo and plain->plain pass through, plain->echo starts at
+    phase 0, echo->plain resumes from the inner position and drops the
+    remaining repeats of a mid-echo batch (logged)."""
+    is_echo = (isinstance(state, dict)
+               and set(state) == {"inner_before", "phase"})
+    if data_echo > 1:
+        return state if is_echo else {"inner_before": state, "phase": 0}
+    if is_echo:
+        if state["phase"]:
+            log.warning(
+                "resuming with data_echo=1 from a mid-echo checkpoint: "
+                "the in-flight batch's remaining %d echoes are dropped",
+                state["phase"])
+        return state["inner_before"]
+    return state
 
 
 def _grain_state_path(manager, step: int) -> pathlib.Path:

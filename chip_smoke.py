@@ -55,22 +55,53 @@ Phases; any failure raises and the process exits non-zero:
    ``CheckpointFollower`` that swaps in a newer step (one more
    ``train.train`` step) once.  Each kernel launches once a train step,
    an eval batch and a dispatch.
-6. A ``kernels`` JSON line (``launches`` from phase 3's serving run,
-   ``train_launches`` from phase 4's ``train``, ``eval_launches`` from
-   phase 5's evaluation), then the last line ``{"ok": true, "device":
-   {...}}``.
+6. Train and evaluate from records: ``mpii_rank1_224`` fed from
+   MPII-schema TFRecords through the port's input pipeline, with JPEG
+   decode on the card (nvJPEG, ``csrc/jpeg_decode.cu``).  The JPEG
+   fixtures of ``tests/fixtures_torch/`` are decoded on the card and
+   cropped at the eval geometry and at one seeded train geometry, and each
+   crop is held against the JAX pipeline's golden crop (OpenCV decode +
+   ``preprocess_decoded_np``, made on a host with OpenCV): mean |d| <= 1.5
+   levels, at most 1% of pixels off by more than 8, the transform equal.
+   512 train and 48 eval records are written from the fixtures (seeded
+   labels and keypoints) and indexed; ``train_cli`` trains 12 steps
+   (checkpoints every 4, an eval every 6, the best kept) and ``eval_cli``
+   evaluates the last step; the event file holds the scalars.  A run with
+   a real SIGTERM at step 5, resumed to 10, equals an uninterrupted run
+   bit for bit (losses and a hash of every batch on the card), plainly and
+   with ``data_echo=2`` stopped mid-echo.  The logits of the eval records
+   are held against those of the golden crops injected as arrays.  Rates:
+   the pipeline alone (train batch 8, eval batch 16) over the records of
+   every fixture and over those of the two 1280x720 fixtures alone
+   (MPII's size; the train side with 0 and 2 reader threads); from the
+   1280x720 records, the train step fed from records against a resident
+   batch and the eval loop from records against injected arrays.
+7. A ``kernels`` JSON line (``launches`` from phase 3's serving run for
+   the pooling kernels and from phase 6's ``train_cli`` for the colour
+   kernel; ``train_launches`` from phase 4's ``train``, ``eval_launches``
+   from phase 5's evaluation, ``pipeline_train_launches`` and
+   ``pipeline_eval_launches`` from phase 6's CLIs, each kernel counted
+   over each run), then the last line ``{"ok": true, "device": {...}}``.
+
+The kernels (``csrc/attn_pool.cu``, ``csrc/jpeg_decode.cu`` with ``nvcc``,
+``csrc/tfrecord_index.cc`` with the host compiler) build at once, each in
+its own thread, before phase 2.
 
 ``--profile`` adds a torch.profiler breakdown of a call at each bucket, of
-one training step and of a pipelined pass of phase 5's eval loop.
+one training step, of a pipelined pass of phase 5's eval loop and, in
+phase 6, of the decode alone and of train steps fed from records.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import signal
+import struct
 import subprocess
 import sys
 import tempfile
@@ -83,11 +114,17 @@ import torch
 from attentionalpoolingaction_torch import checkpoint
 from attentionalpoolingaction_torch import config as config_lib
 from attentionalpoolingaction_torch import convert
+from attentionalpoolingaction_torch import eval_cli
 from attentionalpoolingaction_torch import evaluate
 from attentionalpoolingaction_torch import serving
 from attentionalpoolingaction_torch import train
+from attentionalpoolingaction_torch import train_cli
+from attentionalpoolingaction_torch.data import grain_pipeline, jpeg
+from attentionalpoolingaction_torch.data import native_io, pipeline, records
+from attentionalpoolingaction_torch.data import preprocessing as pp
 from attentionalpoolingaction_torch.ops import _build
 from attentionalpoolingaction_torch.ops import attn_pool_cuda as apc
+from attentionalpoolingaction_torch.tf_checkpoint import _fields
 from attentionalpoolingaction_torch.train import build_model, normalize_images
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, float32 outside the tensor
@@ -133,6 +170,9 @@ EVAL_ACC_ATOL = 1 / 40 + 1e-9
 SERVE_PROB_ATOL = 1e-4
 GRAD_NAMES = ("x", "attn_w", "attn_b", "sal_w", "sal_b")
 SOURCE = "attentionalpoolingaction_torch/csrc/attn_pool.cu"
+JPEG_SOURCE = "attentionalpoolingaction_torch/csrc/jpeg_decode.cu"
+# no TPU kernel: the JAX package decodes on the host (cv2.imdecode)
+JPEG_REPLACES = "attentionalpoolingaction_tpu/data/preprocessing_np.py:17"
 REPLACES = {
     "saliency_summary":
         "attentionalpoolingaction_tpu/ops/attn_pool_pallas.py:100",
@@ -237,12 +277,36 @@ def library_fused(x, sal_w, sal_b, w_pfc, attn_b):
     return library_project(v.float(), s, w_pfc, attn_b)
 
 
-def phase_kernels(timer):
+def build_libraries():
+    """Build every native library of the port at once, one thread each (a
+    compiler process each), and raise the first failure."""
+    libs = [_build.ATTN_POOL, jpeg.LIBRARY, native_io.LIBRARY]
+    times, errors = {}, []
+
+    def build(lib):
+        t0 = time.monotonic()
+        try:
+            lib.build()
+        except Exception as e:          # re-raised below, after the joins
+            errors.append(e)
+        times[lib.name] = time.monotonic() - t0
+
     t0 = time.monotonic()
-    _build.load()
-    log(f"built {_build.library_path().name} in "
-        f"{time.monotonic() - t0:.1f} s")
-    for line in _build.build_log.splitlines():
+    threads = [threading.Thread(target=build, args=(lib,)) for lib in libs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    built = ", ".join(f"{lib.library_path().name} ({times[lib.name]:.1f} s)"
+                      for lib in libs)
+    log(f"built {built} in {time.monotonic() - t0:.1f} s, at once")
+
+
+def phase_kernels(timer):
+    pool_lib = _build.ATTN_POOL.load()
+    for line in _build.ATTN_POOL.build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             log("  nvcc:", line.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -271,13 +335,13 @@ def phase_kernels(timer):
         pp = apc.project_plan(b, n, f, c, p)
         with torch.no_grad():
             v, s = apc.saliency_summary(x, sw, sb)
-            sal_clusters = _build.load().apa_last_active_clusters()
+            sal_clusters = pool_lib.apa_last_active_clusters()
             pv, ps = apc.saliency_summary_plain(x, sw, sb)
             plog = apc.project_logits_plain(pv, ps, w_pfc, ab)
             # the projection runs on the plain summary, so that its error
             # is its own
             logits = apc.project_logits(pv, ps, w_pfc, ab)
-            proj_clusters = _build.load().apa_last_active_clusters()
+            proj_clusters = pool_lib.apa_last_active_clusters()
         log(f"plans: saliency cluster {sp.cluster} x {sp.f_slice} columns, "
             f"{sp.path}, r2 {sp.r2}, {sp.smem_bytes} B, {sp.grid} CTAs, "
             f"{sal_clusters} clusters at once; projection K split "
@@ -688,18 +752,14 @@ def phase_training(card):
     # -- the main path, counted: train.train over 8 numpy batches ------------
     run_cfg = dataclasses.replace(cfg, log_every=4)
     batches = [train_batch(rng, cfg) for _ in range(8)]
-    apc.reset_launch_counts()
     t0 = time.perf_counter()
-    state, history = train.train(run_cfg, train_iter=iter(batches),
-                                 num_steps=8, device="cuda")
-    torch.cuda.synchronize()
+    (state, history), launches = counted(lambda: train.train(
+        run_cfg, train_iter=iter(batches), num_steps=8, device="cuda"))
     wall = time.perf_counter() - t0
-    launches = dict(apc.launch_counts)
     log(f"train.train: 8 steps from the seed-{cfg.seed} init in {wall:.1f} s "
         f"(state built included); history {history}; launches {launches}")
-    if launches != {"saliency_summary": 8, "project_logits": 8}:
-        raise AssertionError(f"kernel launches {launches} over 8 train "
-                             "steps, want 8 and 8")
+    # numpy batches handed to the step: nothing is decoded
+    expect_launches("train.train over 8 steps", launches, 8, ycc=0)
     if not all(np.isfinite(v) for h in history for v in h.values()):
         raise AssertionError(f"non-finite metrics {history}")
     if not all(torch.isfinite(p).all() for p in state.model.parameters()):
@@ -829,18 +889,25 @@ def state_tensors(state):
 
 
 def counted(fn):
-    """``fn()``'s result and the kernel launches it made (counts set to 0
-    just before, read after a synchronize)."""
+    """``fn()``'s result and the kernel launches it made, the pooling
+    kernels' and the colour kernel's (counts set to 0 just before, read
+    after a synchronize).  ``jpeg.decode_count`` is reset with them."""
     apc.reset_launch_counts()
+    jpeg.reset_counts()
     result = fn()
     torch.cuda.synchronize()
-    return result, dict(apc.launch_counts)
+    return result, {**apc.launch_counts, **jpeg.launch_counts}
 
 
-def expect_launches(what, launches, n):
-    if launches != {"saliency_summary": n, "project_logits": n}:
+def expect_launches(what, launches, n, ycc=None):
+    """Each pooling kernel launched ``n`` times, and the colour kernel
+    ``ycc`` times unless that is None."""
+    pooling = {k: launches[k] for k in ("saliency_summary", "project_logits")}
+    if pooling != {"saliency_summary": n, "project_logits": n} or (
+            ycc is not None and launches["ycc_to_rgb"] != ycc):
         raise AssertionError(f"{what}: kernel launches {launches}, want {n} "
-                             "of each")
+                             f"of each pooling kernel"
+                             + ("" if ycc is None else f", {ycc} colour"))
 
 
 def eval_serialized(step_fn, batches):
@@ -982,7 +1049,8 @@ def phase_checkpointed_run(card, profile=False):
         evaluator = evaluate.Evaluator(run_cfg, device="cuda")
         results, launches = counted(
             lambda: evaluator(restored, eval_iter=iter(ev_set)))
-        expect_launches("evaluate (3 batches)", launches, len(ev_set))
+        # uint8 arrays injected: nothing is decoded
+        expect_launches("evaluate (3 batches)", launches, len(ev_set), ycc=0)
         out["eval_launches"] = launches
         card_host = evaluator.logits(restored, iter(ev_set))
         cpu_host = evaluate.Evaluator(run_cfg, device="cpu").logits(
@@ -1100,6 +1168,594 @@ def phase_checkpointed_run(card, profile=False):
     return out
 
 
+# -- phase 6 -----------------------------------------------------------------
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+FIXTURES = os.path.join(HERE, "tests", "fixtures_torch")
+FIXTURE_TRAIN_SEED = 1000   # a fixture's train geometry: default_rng(1000 + i)
+# The gate of nvJPEG + the torch preprocessing against the JAX goldens
+# (libjpeg-turbo's decode and cv2.resize): the decoders differ in their
+# IDCT, chroma upsampling and colour conversion by a level or two.
+DECODE_MEAN_LEVELS = 1.5
+DECODE_FAR_LEVELS, DECODE_FAR_SHARE = 8, 0.01
+N_TRAIN_RECORDS, N_EVAL_RECORDS = 512, 48
+# The eval logits of the records (decoded on the card) against those of the
+# golden crops, bounded by two controls on the golden crops with the same
+# root-mean-square as the largest eval decode gap (to first order the
+# logits move with the perturbation's L2 norm): white noise, and a
+# constant shift of each image's channels.  The gap's spatial structure
+# lies between the two (a ResNet's first 7x7 convolution averages white
+# noise away and passes a shift whole); 3x the larger leaves room for the
+# first-order estimate.  A channel swap or a flip moves the logits by O(1).
+RECORD_LOGITS_CONTROL_FACTOR = 3.0
+EVAL_KEYS = {"num_examples", "mAP", "num_eval_classes", "accuracy", "step"}
+
+
+def load_fixtures():
+    """The JPEG fixtures, and the JAX pipeline's crops and transforms of
+    them (tests/fixtures_torch/make_fixtures.py)."""
+    golden = np.load(os.path.join(FIXTURES, "golden.npz"))
+    names = [str(n) for n in golden["names"]]
+    datas = []
+    for n in names:
+        with open(os.path.join(FIXTURES, n), "rb") as f:
+            datas.append(f.read())
+    crops = {k: np.cumsum(golden[f"{k}_image_dx"], axis=2, dtype=np.uint8)
+             for k in ("eval", "train")}
+    transforms = {k: golden[f"{k}_transform"] for k in ("eval", "train")}
+    return names, datas, crops, transforms
+
+
+def fixture_geometry(kind, i, data):
+    h, w = jpeg.image_size(data)
+    return pp.draw_geometry(
+        h, w, out_size=224, is_training=kind == "train", resize_min=256,
+        resize_max=512, rng=(np.random.default_rng(FIXTURE_TRAIN_SEED + i)
+                             if kind == "train" else None))
+
+
+def check_colour_kernel(timer, names, datas):
+    """The colour kernel (libjpeg's chroma upsampling and YCbCr -> RGB)
+    against its plain version on nvJPEG's planes of every colour fixture,
+    bit for bit; timed at the first (MPII's 1280x720, 4:2:0)."""
+    row = None
+    for name, (y, cb, cr, sampling) in zip(
+            names, jpeg.decode_planes(datas, "cuda")):
+        if sampling is None:
+            continue
+        got = jpeg.ycc_to_rgb(y, cb, cr, *sampling)
+        want = jpeg.ycc_to_rgb_plain(y, cb, cr, *sampling)
+        err = int((got.int() - want.int()).abs().max())
+        log(f"ycc_to_rgb vs plain, {name} {tuple(y.shape)} chroma "
+            f"{tuple(cb.shape)} at {sampling[0]}x{sampling[1]}: max |d| {err}"
+            f" (tolerance 0)")
+        if err:
+            raise AssertionError(f"ycc_to_rgb disagrees with its plain "
+                                 f"version on {name}: {err}")
+        if row is None:
+            h, w = y.shape
+            cw, ch = -(-w // sampling[0]), -(-h // sampling[1])
+            # reads Y and both chroma planes once, writes RGB once; ~30
+            # integer operations a pixel on the CUDA cores
+            bms, by = bound_ms(h * w + 2 * cw * ch + 3 * h * w, 30 * h * w)
+            row = {"shape": [h, w], "sampling": list(sampling),
+                   "max_abs_err": err,
+                   "ms": timer(lambda: jpeg.ycc_to_rgb(y, cb, cr, *sampling)),
+                   "plain_ms": timer(lambda: jpeg.ycc_to_rgb_plain(
+                       y, cb, cr, *sampling)),
+                   "bound_ms": bms, "bound_by": by, "library_ms": None}
+            row["bound_share"] = bms / row["ms"]
+            log(f"ycc_to_rgb {h}x{w}: {row['ms']:.4f} ms, plain "
+                f"{row['plain_ms']:.4f} ms, bound {bms:.4f} ms ({by}), "
+                f"{row['bound_share']:.1%} of it")
+    return row
+
+
+def check_decode(names, datas, crops, transforms):
+    """Decode every fixture on the card and crop it at the eval and the
+    seeded train geometry; hold each crop against the JAX pipeline's."""
+    images = jpeg.decode(datas, "cuda")
+    again = jpeg.decode(datas, "cuda")
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(images, again)):
+        raise AssertionError("two nvJPEG decodes gave different bits")
+    out = {}
+    for kind in ("eval", "train"):
+        for i, (name, data) in enumerate(zip(names, datas)):
+            g = fixture_geometry(kind, i, data)
+            if not np.array_equal(g.transform(), transforms[kind][i]):
+                raise AssertionError(f"{kind} transform of {name}: "
+                                     f"{g.transform()} vs JAX "
+                                     f"{transforms[kind][i]}")
+            crop = pp.apply_geometry(images[i], g, out_size=224,
+                                     keep_uint8=True).cpu().numpy()
+            d = np.abs(crop.astype(np.int16) - crops[kind][i])
+            row = {"mean": float(d.mean()), "max": int(d.max()),
+                   "rms": float(np.sqrt((d.astype(np.float64) ** 2).mean())),
+                   "p99_9": float(np.percentile(d, 99.9)),
+                   "far_share": float((d > DECODE_FAR_LEVELS).mean())}
+            out[f"{kind}/{name}"] = row
+            log(f"decode+crop vs JAX, {kind:<5} {name:<22} "
+                f"{tuple(images[i].shape)}: mean |d| {row['mean']:.3f}, rms "
+                f"{row['rms']:.3f}, max "
+                f"{row['max']}, p99.9 {row['p99_9']:.1f}, > "
+                f"{DECODE_FAR_LEVELS}: {row['far_share']:.2%}")
+            if not (row["mean"] <= DECODE_MEAN_LEVELS
+                    and row["far_share"] <= DECODE_FAR_SHARE):
+                raise AssertionError(
+                    f"{kind} crop of {name} off the JAX golden: {row} (gate"
+                    f" mean <= {DECODE_MEAN_LEVELS}, > {DECODE_FAR_LEVELS} "
+                    f"on <= {DECODE_FAR_SHARE:.0%})")
+    return out
+
+
+def write_records(workdir, datas, prefix=""):
+    """512 train and 48 eval MPII-schema records (record i holds the JPEG
+    ``datas[i % len(datas)]``) with seeded labels, keypoints and
+    visibility, indexed."""
+    rng = np.random.default_rng(6)
+    dims = [jpeg.image_size(d) for d in datas]
+
+    def examples(n):
+        for i in range(n):
+            k = i % len(datas)
+            h, w = dims[k]
+            yield records.make_example(
+                datas[k], height=h, width=w, label=int(rng.integers(393)),
+                keypoints=(rng.uniform(size=(16, 2)) * [h, w]).astype(
+                    np.float32),
+                visibility=(rng.uniform(size=16) > 0.2).astype(np.float32))
+
+    paths = {}
+    t0 = time.perf_counter()
+    for split, n in (("train", N_TRAIN_RECORDS), ("val", N_EVAL_RECORDS)):
+        paths[split] = os.path.join(workdir, f"{prefix}{split}.tfrecord")
+        records.write_tfrecord(paths[split], examples(n))
+        if native_io.build_index(paths[split]) != n:
+            raise AssertionError(f"{paths[split]} does not hold {n} records")
+    log(f"records: {N_TRAIN_RECORDS} train "
+        f"({os.path.getsize(paths['train'])} bytes) and {N_EVAL_RECORDS} "
+        f"eval of {len(datas)} JPEGs written and indexed in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return paths
+
+
+def read_scalars(workdir):
+    """tag -> [(step, value)] of the event files of ``workdir``."""
+    out = {}
+    for name in sorted(os.listdir(workdir)):
+        if "tfevents" not in name:
+            continue
+        for raw in records.read_tfrecord(os.path.join(workdir, name)):
+            fields = list(_fields(raw))
+            step = next((v for n, _, v in fields if n == 2), 0)
+            for value in (v for n, _, s in fields if n == 5
+                          for m, _, v in _fields(s) if m == 1):
+                f = {k: v for k, _, v in _fields(value)}
+                out.setdefault(bytes(f[1]).decode(), []).append(
+                    (step, struct.unpack("<f", f[2])[0]))
+    return out
+
+
+def run_clis(paths, run_dir):
+    """train_cli for 12 steps (checkpoints every 4, an eval every 6), then
+    eval_cli of the last step; launches counted over each."""
+    out = {}
+    args = ["--config", "mpii_rank1_224", "--train_pattern", paths["train"],
+            "--eval_pattern", paths["val"], "--workdir", run_dir,
+            "--num_steps", "12", "--eval_every", "6",
+            "--set", "checkpoint_every=4", "--set", "log_every=1"]
+    t0 = time.perf_counter()
+    state, launches = counted(lambda: train_cli.main(args))
+    out["train_cli_s"] = time.perf_counter() - t0
+    out["train_cli_decoded"] = jpeg.decode_count
+    # 12 steps, and two evaluations of the 48 eval records in 6 batches
+    expect_launches("train_cli: 12 steps, 2 evals of 6 batches", launches,
+                    12 + 2 * 6)
+    out["pipeline_train_launches"] = launches
+    mgr = checkpoint.make_manager(os.path.join(run_dir, "checkpoints"))
+    iter_state = json.loads(
+        (mgr.directory / "grain_iter_12_p0.json").read_text())
+    best = checkpoint.BestKeeper(run_dir).best()
+    if state.step != 12 or mgr.all_steps() != [4, 8, 12] or \
+            iter_state != dict(zip(("epoch", "position"),
+                                   divmod(96, N_TRAIN_RECORDS))) or \
+            best is None:
+        raise AssertionError(f"train_cli: step {state.step}, steps "
+                             f"{mgr.all_steps()}, stream {iter_state}, best "
+                             f"{best}")
+    # 96 train images and 96 eval images at least (the prefetch reads on)
+    if out["train_cli_decoded"] < 192 or not \
+            0 < launches["ycc_to_rgb"] <= out["train_cli_decoded"]:
+        raise AssertionError(f"{out['train_cli_decoded']} images decoded "
+                             f"on the card, want >= 192; colour kernel "
+                             f"launched {launches['ycc_to_rgb']} times")
+    del state
+    t0 = time.perf_counter()
+    printed, launches = counted(lambda: eval_cli.main([
+        "--config", "mpii_rank1_224", "--workdir", run_dir,
+        "--eval_pattern", paths["val"]]))
+    out["eval_cli_s"] = time.perf_counter() - t0
+    expect_launches("eval_cli: 6 batches", launches, 6)
+    out["pipeline_eval_launches"] = launches
+    if not 0 < launches["ycc_to_rgb"] <= N_EVAL_RECORDS:
+        raise AssertionError(f"colour kernel launched "
+                             f"{launches['ycc_to_rgb']} times over the eval")
+    line = printed[-1]
+    if set(line) != EVAL_KEYS or line["step"] != 12 or \
+            line["num_examples"] != 48:
+        raise AssertionError(f"eval_cli printed {line}")
+    out["eval_cli"] = line
+    scalars = read_scalars(run_dir)
+    steps = [s for s, _ in scalars.get("loss/total", [])]
+    losses = [v for _, v in scalars.get("loss/total", [])]
+    evals = [s for s, _ in scalars.get("eval/mAP", [])]
+    if steps != list(range(1, 13)) or sorted(evals) != [6, 12, 12] or \
+            not np.isfinite(losses).all():
+        raise AssertionError(f"event files: loss/total at {steps}, "
+                             f"eval/mAP at {evals}")
+    out["losses"] = losses
+    log(f"train_cli: 12 steps from records in {out['train_cli_s']:.1f} s "
+        f"(state, 3 saves, 2 evals and the best slot included; "
+        f"{out['train_cli_decoded']} images decoded on the card), losses "
+        + ", ".join(f"{v:.4f}" for v in losses)
+        + f"; launches {out['pipeline_train_launches']}")
+    log(f"eval_cli: {line} in {out['eval_cli_s']:.1f} s; launches {launches}"
+        f"; event files hold loss/total at steps 1-12 and eval/mAP at "
+        f"{sorted(evals)}")
+    return out
+
+
+def batch_digest(batch):
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        t = batch[k]
+        h.update(f"{k} {tuple(t.shape)} {t.dtype}".encode())
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def digesting(digests):
+    """``train.train``'s steps append a digest of each batch they get (on
+    the card, after the pipeline, prefetch and echo) to ``digests``."""
+    make = train.make_train_step
+
+    def make_digesting(spec, cfg):
+        step = make(spec, cfg)
+
+        def step_fn(state, batch):
+            digests.append(batch_digest(batch))
+            return step(state, batch)
+        return step_fn
+
+    train.make_train_step = make_digesting
+    try:
+        yield
+    finally:
+        train.make_train_step = make
+
+
+def check_resume(paths, workdir, echo):
+    """10 steps from records straight, against a real SIGTERM at step 5
+    and a resumed run to 10: losses and batch digests equal bit for bit.
+    cuDNN is held to deterministic algorithms for it (some of its
+    weight-gradient convolutions sum in a varying order)."""
+    cfg = config_lib.get_config(
+        "mpii_rank1_224", train_pattern=paths["train"], log_every=1,
+        checkpoint_every=1000, data_echo=echo)
+    torch.backends.cudnn.deterministic = True
+    try:
+        straight_d, cut_d = [], []
+        with digesting(straight_d):
+            state, hist = train.train(cfg, num_steps=10, device="cuda")
+        del state
+        mgr = checkpoint.make_manager(
+            os.path.join(workdir, f"resume_echo{echo}"))
+
+        def terminate_at_5(step, state, metrics):
+            if step == 5:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        with digesting(cut_d):
+            state, hist1 = train.train(cfg, num_steps=10, device="cuda",
+                                       checkpoint_manager=mgr,
+                                       hooks=[terminate_at_5])
+            stopped, steps = state.step, mgr.all_steps()
+            del state
+            saved = json.loads(
+                (mgr.directory / "grain_iter_5_p0.json").read_text())
+            state, hist2 = train.train(cfg, num_steps=10, device="cuda",
+                                       checkpoint_manager=mgr)
+            del state
+    finally:
+        torch.backends.cudnn.deterministic = False
+    want = [h["loss/total"] for h in hist]
+    got = [h["loss/total"] for h in hist1 + hist2]
+    mid_echo = echo == 1 or saved.get("phase") == 1
+    if stopped != 5 or steps != [5] or got != want or \
+            cut_d != straight_d or len(want) != 10 or not mid_echo:
+        raise AssertionError(
+            f"resume from records, data_echo={echo}: stopped at {stopped}, "
+            f"steps {steps}, saved stream {saved}; losses {got} vs {want}; "
+            f"batches equal {cut_d == straight_d}")
+    log(f"resume from records, data_echo={echo}: SIGTERM at 5 (stream "
+        f"{saved}), resumed to 10: losses and the {len(cut_d)} batch "
+        f"digests equal the uninterrupted run's bit for bit; losses "
+        + ", ".join(f"{v:.4f}" for v in want))
+    return {"losses": want, "saved_stream": saved}
+
+
+def golden_batches(images, labels, batch):
+    """The 48 eval records' golden crops (record i holds fixture i % 7) as
+    injected batches."""
+    return [{"image": images[lo:lo + batch], "label": labels[lo:lo + batch],
+             "mask": np.ones(len(labels[lo:lo + batch]), np.float32)}
+            for lo in range(0, len(labels), batch)]
+
+
+def check_record_logits(paths, run_dir, crops, decode):
+    """The eval records' logits (decoded on the card) against the logits of
+    the golden crops injected as arrays, on the same weights (step 12 of
+    the CLI run), TF32 off; bounded by the controls above."""
+    spec = train.get_dataset("mpii")
+    cfg = config_lib.get_config("mpii_rank1_224", eval_pattern=paths["val"],
+                                eval_batch_size=16)
+    labels = np.array([records.parse_example(r, spec)["label"]
+                       for r in records.read_tfrecord(paths["val"])])
+    restored = checkpoint.restore_for_eval(
+        checkpoint.make_manager(os.path.join(run_dir, "checkpoints")))
+    evaluator = evaluate.Evaluator(cfg, device="cuda")
+    golden_u8 = crops["eval"][np.arange(len(labels)) % len(crops["eval"])]
+    # float32 minus the means: what normalize_images makes of the uint8
+    golden = golden_u8.astype(np.float32) - np.array(
+        [pp.R_MEAN, pp.G_MEAN, pp.B_MEAN], np.float32)
+    gap = max(r["rms"] for k, r in decode.items() if k.startswith("eval/"))
+    rng = np.random.default_rng(7)
+    half = gap * 3 ** 0.5           # uniform on [-half, half]: rms = gap
+    controls = {
+        "white": golden + rng.uniform(-half, half, golden.shape
+                                      ).astype(np.float32),
+        "shift": golden + (gap * rng.choice([-1.0, 1.0], (len(labels), 1, 1,
+                                                          3))
+                           ).astype(np.float32)}
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        from_records = evaluator.logits(restored)
+        ref = evaluator.logits(restored,
+                               iter(golden_batches(golden, labels, 16)))
+        moved = {k: evaluator.logits(restored,
+                                     iter(golden_batches(v, labels, 16)))
+                 for k, v in controls.items()}
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    if not np.array_equal(from_records["label"], ref["label"]):
+        raise AssertionError("eval records and injected labels differ")
+    scale = np.abs(ref["logits"]).max()
+
+    def rel(h):
+        return float(np.abs(h["logits"] - ref["logits"]).max() / scale)
+
+    res = {"logits_rel": rel(from_records),
+           "control_rel": {k: rel(v) for k, v in moved.items()},
+           "gap_rms_levels": gap,
+           "metrics_records": evaluate.compute_metrics(cfg, from_records),
+           "metrics_golden": evaluate.compute_metrics(cfg, ref)}
+    res["bound"] = RECORD_LOGITS_CONTROL_FACTOR * max(
+        res["control_rel"].values())
+    log(f"eval logits, records decoded on the card vs the golden crops "
+        f"injected (48 images, TF32 off): relative difference "
+        f"{res['logits_rel']:.3e}; controls at the gap's rms {gap:.4f}: white "
+        f"{res['control_rel']['white']:.3e}, shift "
+        f"{res['control_rel']['shift']:.3e}; bound "
+        f"{RECORD_LOGITS_CONTROL_FACTOR:g} x the larger = "
+        f"{res['bound']:.3e}; mAP {res['metrics_records']['mAP']:.6f} vs "
+        f"{res['metrics_golden']['mAP']:.6f}")
+    if not res["logits_rel"] <= res["bound"]:
+        raise AssertionError(f"logits from records differ from the golden "
+                             f"crops' by {res['logits_rel']:.3e} > "
+                             f"{res['bound']:.3e}")
+    return res, evaluator, golden_batches(golden_u8, labels, 16)
+
+
+def train_pipeline_rate(pattern, num_workers=0):
+    """Images/s of the train pipeline alone at batch 8: read, parse and
+    geometry (in ``num_workers`` threads, or inline), decode and crop on
+    the card, and the copy of the labels to the card."""
+    spec = train.get_dataset("mpii")
+    dev = torch.device("cuda")
+    it = grain_pipeline.make_train_iterator(
+        pattern, spec, batch_size=8, image_size=224, resize_min=256,
+        resize_max=512, seed=0, transfer_uint8=True, num_workers=num_workers,
+        device=dev)
+    try:
+        for _ in range(2):
+            pipeline.to_device(next(it), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            pipeline.to_device(next(it), dev)
+        torch.cuda.synchronize()
+        return 160 / (time.perf_counter() - t0)
+    finally:
+        it.close()
+
+
+def eval_pipeline_rate(pattern):
+    """Images/s of the eval pipeline alone (batch 16, 5 passes over the
+    48 eval records)."""
+    dev = torch.device("cuda")
+    ds = grain_pipeline.make_eval_dataset(
+        pattern, train.get_dataset("mpii"), batch_size=16, image_size=224,
+        resize_min=256, transfer_uint8=True, device=dev)
+    for b in ds:
+        pipeline.to_device(b, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        for b in ds:
+            pipeline.to_device(b, dev)
+    torch.cuda.synchronize()
+    return 5 * N_EVAL_RECORDS / (time.perf_counter() - t0)
+
+
+def pipeline_rates(paths, mpii_paths):
+    """The pipeline alone over the records of every fixture and over those
+    of the two 1280x720 (MPII's size) fixtures alone, which cost the most
+    to decode; at 1280x720 with 0 and 2 reader threads."""
+    return {"pipeline_train_images_per_s": train_pipeline_rate(paths["train"]),
+            "pipeline_eval_images_per_s": eval_pipeline_rate(paths["val"]),
+            "pipeline_train_images_per_s_mpii":
+                train_pipeline_rate(mpii_paths["train"]),
+            "pipeline_train_images_per_s_mpii_2_workers":
+                train_pipeline_rate(mpii_paths["train"], num_workers=2),
+            "pipeline_eval_images_per_s_mpii":
+                eval_pipeline_rate(mpii_paths["val"])}
+
+
+def step_rates(paths):
+    """Median train step of mpii_rank1_224 (TF32 on) fed from records
+    (through the prefetch, the pull included) against a resident batch, in
+    turns; and the state and step for the profile."""
+    cfg = config_lib.get_config("mpii_rank1_224", train_pattern=paths["train"])
+    state, spec = train.create_state(cfg, device="cuda")
+    step = train.make_train_step(spec, cfg)
+    source = grain_pipeline.make_train_iterator(
+        paths["train"], spec, batch_size=8, image_size=224, resize_min=256,
+        resize_max=512, seed=0, transfer_uint8=True, device="cuda")
+    batches = pipeline.StatefulPrefetchIterator(source, device="cuda")
+    resident = next(batches)
+    for _ in range(3):
+        step(state, next(batches))
+        step(state, resident)
+    times = {"records": [], "resident": []}
+    for order in (("resident", "records"), ("records", "resident")) * 2:
+        for kind in order:
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(state, next(batches) if kind == "records" else resident)
+                torch.cuda.synchronize()
+                times[kind].append(time.perf_counter() - t0)
+    return ({f"step_ms_{k}": float(np.median(v)) * 1e3
+             for k, v in times.items()}, state, step, batches, source)
+
+
+def eval_rates(evaluator, injected, pattern):
+    """Images/s of the eval loop (batches of 16) over the 48 eval records
+    of ``pattern`` from the pipeline against the golden crops injected as
+    arrays, 5 passes a timing, 4 timings each in turns."""
+    cfg = dataclasses.replace(evaluator.cfg, eval_pattern=pattern)
+    spec = train.get_dataset("mpii")
+    rates = {"records": [], "injected": []}
+
+    def one(kind):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            src = (evaluate.make_eval_input(cfg, spec, device="cuda")
+                   if kind == "records" else iter(injected))
+            evaluate.eval_logits(evaluator.step_fn, src, device="cuda")
+        rates[kind].append(5 * N_EVAL_RECORDS / (time.perf_counter() - t0))
+
+    one("records")
+    one("injected")
+    rates = {"records": [], "injected": []}
+    for order in (("records", "injected"), ("injected", "records")) * 2:
+        for kind in order:
+            one(kind)
+    return {f"eval_images_per_s_{k}": float(np.median(v))
+            for k, v in rates.items()}
+
+
+def profile_records(datas, state, step, batches):
+    """Device time of the decode alone (the fixtures, 4 passes) and the
+    device's busy share over 5 train steps fed from records."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_ms(prof):
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and not e.key.startswith("Optimizer.")) / 1e3
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(4):
+            jpeg.decode(datas, "cuda")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dec = device_ms(prof)
+    n = 4 * len(datas)
+    log(f"profile: decode of the {len(datas)} fixtures x 4 (nvJPEG and the "
+        f"colour kernel): {wall:.3f} ms wall, {dec:.3f} ms device time "
+        f"({dec / n:.3f} ms an image, device busy {dec / wall:.1%})")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step(state, next(batches))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = device_ms(prof)
+    if busy == 0 or dec == 0:
+        raise AssertionError("the profiler saw no device time")
+    log(f"profile: 5 train steps fed from records, {wall:.3f} ms wall, "
+        f"{busy:.3f} ms device time (device busy {busy / wall:.1%})")
+    return {"decode_device_ms_per_image": dec / n,
+            "records_step_device_busy": busy / wall}
+
+
+def phase_records(card, timer, profile=False):
+    """mpii_rank1_224 trained and evaluated from records, decoded on the
+    card; see the module docstring, phase 6."""
+    t_phase = time.monotonic()
+    out = {"config": "mpii_rank1_224", "card": card}
+    names, datas, crops, transforms = load_fixtures()
+    out["ycc_kernel"] = check_colour_kernel(timer, names, datas)
+    out["decode"] = check_decode(names, datas, crops, transforms)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_records_") as d:
+        paths = write_records(d, datas)
+        # MPII's own size: the records of the two 1280x720 fixtures alone
+        mpii_paths = write_records(
+            d, [x for n, x in zip(names, datas) if n.startswith("mpii_")],
+            prefix="mpii_")
+        run_dir = os.path.join(d, "run")
+        out["clis"] = run_clis(paths, run_dir)
+        out["resume"] = {echo: check_resume(paths, d, echo)
+                         for echo in (1, 2)}
+        logits, evaluator, injected = check_record_logits(
+            paths, run_dir, crops, out["decode"])
+        out["record_logits"] = logits
+        out.update(pipeline_rates(paths, mpii_paths))
+        out.update(eval_rates(evaluator, injected, mpii_paths["val"]))
+        del evaluator
+        rates, state, step, batches, source = step_rates(mpii_paths)
+        out.update(rates)
+        if profile:
+            out.update(profile_records(datas, state, step, batches))
+        source.close()
+        del state, batches
+    log(f"phase 6 rates on {card}: pipeline alone, records of all 7 "
+        f"fixtures: {out['pipeline_train_images_per_s']:.1f} images/s "
+        f"(train, batch 8) and {out['pipeline_eval_images_per_s']:.1f} "
+        f"(eval, batch 16); records of the two 1280x720 fixtures: "
+        f"{out['pipeline_train_images_per_s_mpii']:.1f} (train), "
+        f"{out['pipeline_train_images_per_s_mpii_2_workers']:.1f} (train, 2 "
+        f"reader threads), {out['pipeline_eval_images_per_s_mpii']:.1f} "
+        f"(eval).  From the 1280x720 records: "
+        f"train step {out['step_ms_records']:.3f} ms from records vs "
+        f"{out['step_ms_resident']:.3f} ms on a resident batch (median, "
+        f"TF32 on); eval loop {out['eval_images_per_s_records']:.1f} "
+        f"images/s from records vs {out['eval_images_per_s_injected']:.1f} "
+        f"injected (batches of 16, TF32 on)")
+    out["phase_s"] = time.monotonic() - t_phase
+    log(f"phase 6 took {out['phase_s']:.1f} s (workdir removed)")
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -1109,6 +1765,7 @@ def main():
     args = parser.parse_args()
 
     card = phase_device()
+    build_libraries()
     timer = ColdTimer()
     rows = phase_kernels(timer)
     pred, launches = phase_serving(card)
@@ -1121,6 +1778,17 @@ def main():
         phase_train_profile(run)
     del run["state"], run["batch"]
     ckpt_run = phase_checkpointed_run(card, profile=args.profile)
+    rec_run = phase_records(card, timer, profile=args.profile)
+
+    def path_launches(name):
+        """The launches of ``name`` on each main path, each counted over
+        its own run."""
+        return {"train_launches": run["launches"][name],
+                "eval_launches": ckpt_run["eval_launches"][name],
+                "pipeline_train_launches":
+                    rec_run["clis"]["pipeline_train_launches"][name],
+                "pipeline_eval_launches":
+                    rec_run["clis"]["pipeline_eval_launches"][name]}
 
     kernels = []
     for name in ("saliency_summary", "project_logits"):
@@ -1136,15 +1804,23 @@ def main():
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
-            "bound_share": main_row["bound_share"],
-            "train_launches": run["launches"][name],
-            "eval_launches": ckpt_run["eval_launches"][name]})
+            "bound_share": main_row["bound_share"], **path_launches(name)})
     log(json.dumps({"training": {
         "config": "mpii_rank1_224", "card": card,
         "step_ms": run["step_ms"], "images_per_s": run["images_per_s"],
         "card_vs_cpu": run["errs"], "launches": run["launches"]}}))
     log(json.dumps({"checkpointed_run": {
         k: v for k, v in ckpt_run.items() if k != "eval_launches"}}))
+    ycc = rec_run["ycc_kernel"]
+    kernels.append({
+        "name": "ycc_to_rgb", "route": "cuda", "source": JPEG_SOURCE,
+        "replaces": JPEG_REPLACES,
+        "launches": rec_run["clis"]["pipeline_train_launches"]["ycc_to_rgb"],
+        **{k: ycc[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms", "bound_share")},
+        **path_launches("ycc_to_rgb")})
+    log(json.dumps({"records_run": {
+        k: v for k, v in rec_run.items() if k not in ("clis", "resume")}}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

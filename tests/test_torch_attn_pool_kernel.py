@@ -136,7 +136,7 @@ def test_cpu_path_neither_builds_nor_counts():
     and launches no kernel."""
     apc.reset_launch_counts()
     apc.fused_pool_logits(**torch_args(make_inputs(1)))
-    assert not _build.loaded()
+    assert not _build.ATTN_POOL.loaded()
     assert apc.launch_counts == {"saliency_summary": 0, "project_logits": 0}
 
 

@@ -202,7 +202,13 @@ def test_unported_eval_paths_raise():
                            device="cpu")
     evaluator = eval_lib.Evaluator(cfg, device="cpu")
     params, stats = variables_for("mpii")
-    with pytest.raises(NotImplementedError, match="input pipeline"):
+    # without an eval_iter the split is read from cfg.eval_pattern, but
+    # clip eval is not ported
+    with pytest.raises(NotImplementedError, match="clip eval"):
+        eval_lib.make_eval_input(
+            dataclasses.replace(cfg, dataset="hmdb51", clip_frames=8),
+            eval_lib.get_dataset("hmdb51"), device="cpu")
+    with pytest.raises(ValueError, match="eval_pattern"):
         evaluator(ckpt_lib.EvalState(step=0, params=params,
                                      batch_stats=stats))
     assert eval_lib.mesh_from_config(cfg) is None

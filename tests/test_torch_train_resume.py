@@ -192,6 +192,8 @@ class CountingIterator:
         return self
 
     def __next__(self):
+        if self.pos == len(self.batches):
+            raise StopIteration
         self.pos += 1
         return self.batches[self.pos - 1]
 
@@ -215,7 +217,8 @@ def test_iterator_state_saved_restored_and_collected(workdir):
     assert files == ["grain_iter_2_p0.json", "grain_iter_3_p0.json"]
     assert json.loads((mgr.directory / files[1]).read_text()) == {"pos": 3}
 
-    # the resumed run continues the stream where the saved one stopped
+    # the resumed run continues the stream where the saved one stopped;
+    # the device prefetch has pulled ahead to the end of the five batches
     it2 = CountingIterator(batches)
     state, _ = train.train(cfg, train_iter=it2, num_steps=5, device="cpu",
                            checkpoint_manager=mgr)
