@@ -32,10 +32,14 @@
 // Huffman decoding on the host thread, the IDCT on the card), into
 // buffers the caller allocated (torch tensors), on the caller's stream.
 // One handle and one decode state per host thread, made at the thread's
-// first call and kept for the life of the process; when a thread's
-// decodes move to another stream (the train prefetch's side stream, then
-// an eval on the default stream), the host first waits for the last one.  Batched decode and
-// the hardware engine (NVJPEG_BACKEND_HARDWARE) are speed work for later.
+// first call and kept for the life of the process.  The host stage of a
+// decode writes the state's buffers, which the card's stage of the last
+// decode may not have read yet: its copy waits in stream order behind
+// whatever the stream holds (a forward of the eval loop, say), and
+// nvjpegDecode returns before it.  So each decode records an event on its
+// stream, and the next decode with the state first waits for it (on any
+// stream).  Batched decode and the hardware engine
+// (NVJPEG_BACKEND_HARDWARE) are speed work for later.
 //
 // Return codes: 0, an nvjpegStatus_t (> 0) or -(cudaError_t) (< 0);
 // apj_error_string gives the text.
@@ -53,9 +57,9 @@ constexpr int kThreads = 256;
 struct Decoder {
   nvjpegHandle_t handle = nullptr;
   nvjpegJpegState_t state = nullptr;
-  // the stream of the last decode; a decode on another stream waits for
-  // it, so the state's buffers are never used on two streams at once
-  cudaStream_t last_stream = nullptr;
+  // recorded after the last decode with the state, on its stream; the
+  // next decode waits for it before the state's buffers are written again
+  cudaEvent_t done = nullptr;
   bool used = false;
 };
 
@@ -75,6 +79,13 @@ int GetDecoder(Decoder** out) {
     if (st != NVJPEG_STATUS_SUCCESS) {
       d.state = nullptr;
       return static_cast<int>(st);
+    }
+  }
+  if (d.done == nullptr) {
+    cudaError_t e = cudaEventCreateWithFlags(&d.done, cudaEventDisableTiming);
+    if (e != cudaSuccess) {
+      d.done = nullptr;
+      return -static_cast<int>(e);
     }
   }
   *out = &d;
@@ -165,12 +176,10 @@ int apj_decode(const unsigned char* data, size_t length, int gray,
   int err = GetDecoder(&d);
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d->used && d->last_stream != s) {
-    cudaError_t e = cudaStreamSynchronize(d->last_stream);
+  if (d->used) {
+    cudaError_t e = cudaEventSynchronize(d->done);
     if (e != cudaSuccess) return -static_cast<int>(e);
   }
-  d->last_stream = s;
-  d->used = true;
   nvjpegImage_t image = {};
   image.channel[0] = y;
   image.pitch[0] = static_cast<size_t>(y_pitch);
@@ -183,7 +192,11 @@ int apj_decode(const unsigned char* data, size_t length, int gray,
   nvjpegStatus_t st = nvjpegDecode(
       d->handle, d->state, data, length,
       gray ? NVJPEG_OUTPUT_Y : NVJPEG_OUTPUT_YUV, &image, s);
-  return static_cast<int>(st);
+  if (st != NVJPEG_STATUS_SUCCESS) return static_cast<int>(st);
+  cudaError_t e = cudaEventRecord(d->done, s);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  d->used = true;
+  return 0;
 }
 
 // libjpeg's fancy upsampling and YCbCr -> RGB of planar Y (h, w) and

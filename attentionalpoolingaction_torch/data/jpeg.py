@@ -22,11 +22,11 @@ tensor a JPEG stream, on ``device``:
     imported there only.
 
 ``cv2.imdecode(IMREAD_COLOR)`` applies a stream's EXIF orientation (a
-rotation or a mirror) and nvJPEG does not, so the two would give
-different pixels for such a stream.  Both paths refuse it instead:
-``image_size`` and ``decode`` raise on an EXIF orientation other than 1
-(the normal one).  The geometry is drawn from the size in the frame
-header (``image_size``).
+mirror, a rotation or a transpose); nvJPEG does not, so on the card
+:func:`orient` applies it to the decoded (H, W, 3) tensor as OpenCV does,
+and both paths give the displayed image.  The geometry is drawn from the
+displayed size (``image_size``: the frame header's, height and width
+swapped for the orientations 5-8 that transpose).
 """
 
 from __future__ import annotations
@@ -41,8 +41,8 @@ import torch
 from attentionalpoolingaction_torch.ops import _build
 
 __all__ = ["LIBRARY", "decode", "decode_count", "decode_planes",
-           "image_size", "launch_counts", "reset_counts", "ycc_to_rgb",
-           "ycc_to_rgb_plain"]
+           "image_size", "launch_counts", "orient", "reset_counts",
+           "ycc_to_rgb", "ycc_to_rgb_plain"]
 
 # nvjpegChromaSubsampling_t
 _CSS_NAMES = {0: "4:4:4", 1: "4:2:2", 2: "4:2:0", 3: "4:4:0", 4: "4:1:1",
@@ -98,12 +98,12 @@ def _check(lib, err: int, what: str) -> None:
         raise ValueError(f"{what} ({lib.apj_error_string(err).decode()})")
 
 
-def _exif_orientation(segment: bytes) -> int:
-    """The orientation tag (0x0112) of IFD0 of an APP1 segment's payload,
-    1 where the segment is not EXIF or has no such tag."""
+def _exif_orientation(segment: bytes) -> int | None:
+    """The orientation tag (0x0112) of IFD0 of an APP1 segment's payload:
+    None where the segment is not EXIF, 1 where it has no such tag."""
     tiff = segment[6:]
     if segment[:6] != b"Exif\x00\x00" or tiff[:2] not in (b"II", b"MM"):
-        return 1
+        return None
     order = "little" if tiff[:2] == b"II" else "big"
     ifd = int.from_bytes(tiff[4:8], order)
     count = int.from_bytes(tiff[ifd:ifd + 2], order)
@@ -113,14 +113,14 @@ def _exif_orientation(segment: bytes) -> int:
     return 1
 
 
-def image_size(data: bytes) -> tuple[int, int]:
-    """(height, width) from a JPEG stream's frame header, without
-    decoding.  Raises on an EXIF orientation other than 1, which OpenCV
-    would apply and nvJPEG would not."""
+def _header(data: bytes) -> tuple[int, int, int]:
+    """(height, width, EXIF orientation) from a JPEG stream's markers up
+    to the first scan, without decoding: the frame header's size and the
+    orientation of the first EXIF APP1 segment (1 without one)."""
     data = bytes(data)
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG stream (no SOI marker)")
-    pos, n, size = 2, len(data), None
+    pos, n, size, orientation = 2, len(data), None, None
     while pos + 4 <= n:             # the markers up to the first scan
         if data[pos] != 0xFF:
             raise ValueError(f"corrupt JPEG stream at byte {pos}")
@@ -135,19 +135,37 @@ def image_size(data: bytes) -> tuple[int, int]:
         if marker == 0xDA:          # start of scan
             break
         length = int.from_bytes(data[pos:pos + 2], "big")
-        if marker == 0xE1:          # APP1: EXIF
+        if marker == 0xE1 and orientation is None:     # APP1: EXIF
             orientation = _exif_orientation(data[pos + 2:pos + length])
-            if orientation != 1:
-                raise ValueError(f"JPEG stream with EXIF orientation "
-                                 f"{orientation}: OpenCV would rotate or "
-                                 f"mirror it and nvJPEG would not")
         if marker in _SOF and size is None and pos + 7 <= n:
             size = (int.from_bytes(data[pos + 3:pos + 5], "big"),
                     int.from_bytes(data[pos + 5:pos + 7], "big"))
         pos += length
     if size is None:
         raise ValueError("JPEG stream has no frame header")
-    return size
+    # OpenCV leaves a stream with a tag outside 1-8 as it is
+    return (*size, orientation if orientation in range(1, 9) else 1)
+
+
+def image_size(data: bytes) -> tuple[int, int]:
+    """(height, width) of a JPEG stream as displayed, without decoding:
+    the frame header's size, swapped for an EXIF orientation that
+    transposes (5-8), so that it is the shape :func:`decode` gives."""
+    h, w, orientation = _header(data)
+    return (w, h) if orientation >= 5 else (h, w)
+
+
+def orient(image: torch.Tensor, orientation: int) -> torch.Tensor:
+    """An (H, W, C) image as displayed under its EXIF ``orientation``,
+    OpenCV's ``ExifTransform``: 2 mirrors left-right, 3 turns 180
+    degrees, 4 mirrors top-bottom; 5-8 transpose first, then 6 mirrors
+    left-right, 7 turns 180 degrees and 8 mirrors top-bottom."""
+    if orientation >= 5:
+        image = image.transpose(0, 1)
+    flips = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}
+    if orientation in flips:
+        image = image.flip(flips[orientation])
+    return image.contiguous()
 
 
 def _fancy_upsample(c: torch.Tensor, hf: int, vf: int, h: int,
@@ -271,16 +289,18 @@ def decode_planes(datas: Sequence[bytes], device) -> list[tuple]:
     return out
 
 
-def _decode_cuda(datas: Sequence[bytes], device: torch.device
-                 ) -> list[torch.Tensor]:
+def _decode_cuda(datas: Sequence[bytes], device: torch.device,
+                 orientations: Sequence[int]) -> list[torch.Tensor]:
     global decode_count
     out = []
-    for y, cb, cr, sampling in decode_planes(datas, device):
+    for (y, cb, cr, sampling), orientation in zip(
+            decode_planes(datas, device), orientations):
         if sampling is None:        # grayscale: three equal channels
             h, w = y.shape
-            out.append(y[:, :, None].expand(h, w, 3).contiguous())
+            rgb = y[:, :, None].expand(h, w, 3)
         else:
-            out.append(ycc_to_rgb(y, cb, cr, *sampling))
+            rgb = ycc_to_rgb(y, cb, cr, *sampling)
+        out.append(orient(rgb, orientation))
     with _count_lock:
         decode_count += len(out)
     return out
@@ -288,15 +308,17 @@ def _decode_cuda(datas: Sequence[bytes], device: torch.device
 
 def decode(datas: Sequence[bytes], device) -> list[torch.Tensor]:
     """RGB uint8 (H, W, 3) tensors of the JPEG streams ``datas`` on
-    ``device``: nvJPEG on a CUDA device, OpenCV on the CPU."""
+    ``device``: nvJPEG on a CUDA device, OpenCV on the CPU, each with
+    the stream's EXIF orientation applied."""
     device = torch.device(device)
+    orientations = []
     for i, data in enumerate(datas):
         try:
-            image_size(data)
+            orientations.append(_header(data)[2])
         except ValueError as e:
             raise ValueError(f"JPEG {i}: {e}") from None
     if device.type == "cpu":
         return [_decode_cpu(d, i) for i, d in enumerate(datas)]
     if device.type != "cuda":
         raise ValueError(f"JPEG decode runs on cuda or cpu, not {device}")
-    return _decode_cuda(datas, device)
+    return _decode_cuda(datas, device, orientations)

@@ -13,7 +13,10 @@ they agree to a few thousandths of a level on photographs and to 0.03 on
 full-range noise, OpenCV rounding its weights), crop, flip, then round
 and clip to uint8 (``keep_uint8``) or subtract the VGG means.
 
-Clips (``preprocess_clip_np``) wait with the video path.
+A clip (``preprocess_clip_np``) shares one geometry, drawn from its first
+frame's size (:func:`draw_geometry`, with ``crop_frac`` for the diagonal
+crops of multi-crop clip eval), and :func:`apply_clip` applies it to all
+T frames, resizing a ragged frame to the first frame's size first.
 """
 
 from __future__ import annotations
@@ -26,9 +29,9 @@ import torch.nn.functional as F
 
 R_MEAN, G_MEAN, B_MEAN = 123.68, 116.78, 103.94
 
-__all__ = ["B_MEAN", "G_MEAN", "Geometry", "R_MEAN", "apply_geometry",
-           "apply_multicrop", "draw_geometry", "multicrop_geometry",
-           "resize"]
+__all__ = ["B_MEAN", "G_MEAN", "Geometry", "R_MEAN", "apply_clip",
+           "apply_geometry", "apply_multicrop", "draw_geometry",
+           "multicrop_geometry", "resize"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,10 +61,14 @@ def _resized(h: int, w: int, side: int) -> tuple[int, int]:
 
 def draw_geometry(h: int, w: int, *, out_size: int, is_training: bool,
                   resize_min: int, resize_max: int | None = None,
-                  rng: np.random.Generator | None = None) -> Geometry:
-    """The geometry ``preprocess_decoded_np`` gives an (h, w) image: in
-    training a random short side, crop and flip drawn from ``rng`` in that
-    order; in eval the short side ``resize_min`` and the central crop."""
+                  rng: np.random.Generator | None = None,
+                  crop_frac: float | None = None) -> Geometry:
+    """The geometry ``preprocess_decoded_np`` (and ``preprocess_clip_np``,
+    from the first frame's size) gives an (h, w) image: in training a
+    random short side, crop and flip drawn from ``rng`` in that order; in
+    eval the short side ``resize_min`` and the central crop, or with
+    ``crop_frac`` the crop at that fraction of the spare extent along both
+    axes."""
     if is_training and resize_max is not None and resize_max > resize_min:
         if rng is None:
             raise ValueError("training preprocessing needs an rng")
@@ -75,6 +82,10 @@ def draw_geometry(h: int, w: int, *, out_size: int, is_training: bool,
         oy = int(rng.integers(0, max(new_h - out_size, 0) + 1))
         ox = int(rng.integers(0, max(new_w - out_size, 0) + 1))
         flip = bool(rng.integers(0, 2))
+    elif crop_frac is not None:
+        oy = int(round(max(new_h - out_size, 0) * crop_frac))
+        ox = int(round(max(new_w - out_size, 0) * crop_frac))
+        flip = False
     else:
         oy = max(new_h - out_size, 0) // 2
         ox = max(new_w - out_size, 0) // 2
@@ -98,8 +109,9 @@ def multicrop_geometry(h: int, w: int, *, out_size: int, resize_min: int,
 
 
 def resize(image: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
-    """A uint8 (H, W, 3) image as float32 (new_h, new_w, 3), bilinear with
-    half-pixel centers and no antialiasing (``cv2.INTER_LINEAR``)."""
+    """A uint8 or float32 (H, W, 3) image as float32 (new_h, new_w, 3),
+    bilinear with half-pixel centers and no antialiasing
+    (``cv2.INTER_LINEAR``)."""
     x = image.to(torch.float32).permute(2, 0, 1)[None]
     x = F.interpolate(x, size=(new_h, new_w), mode="bilinear",
                       align_corners=False, antialias=False)
@@ -141,3 +153,25 @@ def apply_multicrop(image: torch.Tensor, geoms: list[Geometry], *,
     img = _finish(resize(image, g0.new_h, g0.new_w), keep_uint8=False)
     return torch.stack([img[g.oy:g.oy + out_size, g.ox:g.ox + out_size]
                         for g in geoms])
+
+
+def apply_clip(frames: list[torch.Tensor], g: Geometry, *, out_size: int,
+               keep_uint8: bool = False) -> torch.Tensor:
+    """(T, out, out, 3) crops of a clip's decoded uint8 frames at one
+    shared geometry ``g`` (drawn from the first frame's size), on their
+    device: a frame of another size is resized to the first's, as
+    ``preprocess_clip_np`` does, before the shared resize."""
+    out = []
+    for frame in frames:
+        if frame.dtype != torch.uint8 or frame.dim() != 3:
+            raise ValueError(f"expected uint8 (H, W, 3) frames, got "
+                             f"{frame.dtype} {tuple(frame.shape)}")
+        img = frame
+        if tuple(frame.shape[:2]) != (g.h, g.w):
+            img = resize(frame, g.h, g.w)
+        img = resize(img, g.new_h, g.new_w)
+        img = img[g.oy:g.oy + out_size, g.ox:g.ox + out_size]
+        if g.flip:
+            img = img.flip(1)
+        out.append(_finish(img, keep_uint8))
+    return torch.stack(out)

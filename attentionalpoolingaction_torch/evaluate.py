@@ -14,9 +14,12 @@ Without an ``eval_iter`` the split of ``cfg.eval_pattern`` is read through
 the port's input pipeline (:func:`make_eval_input`), decoded on the
 device.
 
+Clip eval (``clip_frames`` > 1) reads ``eval_clips`` x ``eval_multicrop``
+clip rows a video, which the per-video averaging of :func:`compute_metrics`
+combines.
+
 Not ported yet, and raising ``NotImplementedError``: ``eval_int8``
-(``make_int8_eval_step``), clip eval (``clip_frames`` > 1) and
-multi-process gathers.
+(``make_int8_eval_step``) and multi-process gathers.
 """
 
 from __future__ import annotations
@@ -89,20 +92,29 @@ def make_eval_input(cfg: config_lib.TrainConfig, spec,
     ``transfer_uint8``), or ``eval_multicrop`` crops an example, in
     batches of ``eval_batch_size`` with the last padded (``mask`` 0).
     ``input_pipeline`` "tfdata" and "grain" both read through the port's
-    pipeline.  The port runs one process, which reads the whole split
-    whatever ``shard_by_process`` says.  Clip eval is not ported yet and
-    raises."""
+    pipeline.  With ``clip_frames`` > 1 (``input_pipeline`` "grain" only,
+    as in the JAX package): ``eval_clips`` deterministic float32 clips a
+    video, each in ``eval_multicrop`` crops folded into rows.  The port
+    runs one process, which reads the whole split whatever
+    ``shard_by_process`` says."""
     if cfg.eval_clips > 1 and cfg.clip_frames <= 1:
         raise ValueError(
             f"eval_clips={cfg.eval_clips} requires clip mode "
             "(clip_frames > 1) — per-frame eval would silently ignore it")
-    if cfg.clip_frames > 1:
-        raise NotImplementedError("clip eval (clip_frames > 1) is not "
-                                  "ported yet")
+    if cfg.clip_frames > 1 and cfg.input_pipeline != "grain":
+        raise ValueError(
+            "clip_frames > 1 eval requires input_pipeline='grain' "
+            "(the clip sampler runs on the random-access video index)")
     if not cfg.eval_pattern:
         raise ValueError("no eval_iter and no cfg.eval_pattern")
     kw = dict(batch_size=cfg.eval_batch_size, image_size=cfg.image_size,
               resize_min=cfg.resize_min_resolved, device=device)
+    if cfg.clip_frames > 1:
+        return grain_pipeline.make_video_clip_eval_dataset(
+            cfg.eval_pattern, spec, clip_frames=cfg.clip_frames,
+            num_clips=cfg.eval_clips,
+            num_crops=(cfg.eval_multicrop if cfg.eval_multicrop
+                       and cfg.eval_multicrop > 1 else 1), **kw)
     if _multicrop(cfg):
         return grain_pipeline.make_multicrop_eval_dataset(
             cfg.eval_pattern, spec, num_crops=cfg.eval_multicrop, **kw)

@@ -10,6 +10,11 @@ normalizes with batch statistics and updates its running ones.  With
 ``freeze_bn`` the batch norms stay in eval mode whatever ``train()`` says
 (the slim fine-tuning recipe); gradients still reach their scale and
 offset.
+
+``dtype`` is the backbone's compute dtype (bfloat16 with the config's
+``bf16_backbone``); the parameters are float32 whatever it is, and the
+features are cast to float32 before every head, so the heads, the pose
+heatmaps and the logits are float32.
 """
 
 from __future__ import annotations
@@ -37,14 +42,15 @@ class ActionModel(nn.Module):
                  pooling: str = "attention", rank: int = 1,
                  num_joints: int = 16, bn_momentum: float = 0.997,
                  image_size: int = 224, freeze_bn: bool = False,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if pooling not in POOLING_TYPES:
             raise ValueError(f"unknown pooling {pooling!r}")
         self.pooling = pooling
         self.freeze_bn = freeze_bn
         self.resnet = BACKBONES[backbone](bn_momentum=bn_momentum,
-                                          generator=generator)
+                                          generator=generator, dtype=dtype)
         if pooling == "avg":
             self.head = AveragePoolingHead(NUM_FEATURES, num_classes,
                                            generator=generator)

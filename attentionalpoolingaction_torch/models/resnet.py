@@ -20,6 +20,18 @@ Slim semantics reproduced here; each one breaks parity silently if lost:
   * Init as Flax's: convs ``lecun_normal`` (:func:`lecun_normal_`), BN
     scale 1, offset 0, running mean 0, variance 1.
   * v1 = post-activation: out = relu(shortcut + residual).
+  * Compute ``dtype`` (Flax's ``dtype=bfloat16, param_dtype=float32``):
+    parameters and BN statistics stay float32.  The input is rounded to
+    ``dtype`` after the VGG mean subtraction; each conv casts its float32
+    weight to ``dtype`` at the call (so autograd hands float32 gradients
+    to float32 parameters) and its output is ``dtype``, as are the ReLUs,
+    the residual add, the max pool and the subsample.  Batch norm takes a
+    ``dtype`` input and reduces and normalizes in float32 against its
+    float32 scale, offset and statistics, rounding to ``dtype`` at the end
+    (Flax 0.12's ``_compute_stats`` and ``_normalize`` with
+    ``force_float32_reductions``): torch's own batch norm does exactly
+    that for a bfloat16 input with float32 parameters, on the CPU and on
+    CUDA (``tests/test_torch_bf16.py``, ``chip_smoke.py``).
 
 Modules compute in NCHW; the input is the NHWC batch permuted, which is
 already channels-last in memory.  Unit modules are named after slim and
@@ -84,10 +96,21 @@ def lecun_normal_(weight: torch.Tensor,
         return weight.copy_(t)
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` run in the compute dtype of its input: the float32
+    weight is cast to it at the call (Flax's ``promote_dtype``)."""
+
+    def forward(self, x):
+        return self._conv_forward(x, self.weight.to(x.dtype), None)
+
+
 class BatchNorm(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` with Flax's train-mode update: the running
     statistics move toward the batch mean and the *biased* batch variance,
-    the two the batch was normalized with."""
+    the two the batch was normalized with.  It computes in its input's
+    dtype: given bfloat16 and its float32 parameters and statistics, the
+    reductions and the normalization run in float32 and the output is
+    bfloat16."""
 
     def forward(self, x):
         if not self.training:
@@ -138,16 +161,16 @@ class Bottleneck(nn.Module):
         self.stride = stride
         self.identity = depth_in == depth
         if not self.identity:
-            self.shortcut = nn.Conv2d(depth_in, depth, 1, stride=stride,
-                                      bias=False)
+            self.shortcut = Conv2d(depth_in, depth, 1, stride=stride,
+                                   bias=False)
             self.shortcut_bn = _bn(depth, bn_momentum)
-        self.conv1 = nn.Conv2d(depth_in, depth_bottleneck, 1, bias=False)
+        self.conv1 = Conv2d(depth_in, depth_bottleneck, 1, bias=False)
         self.conv1_bn = _bn(depth_bottleneck, bn_momentum)
-        self.conv2 = nn.Conv2d(depth_bottleneck, depth_bottleneck, 3,
-                               stride=stride, bias=False,
-                               padding=1 if stride == 1 else 0)
+        self.conv2 = Conv2d(depth_bottleneck, depth_bottleneck, 3,
+                            stride=stride, bias=False,
+                            padding=1 if stride == 1 else 0)
         self.conv2_bn = _bn(depth_bottleneck, bn_momentum)
-        self.conv3 = nn.Conv2d(depth_bottleneck, depth, 1, bias=False)
+        self.conv3 = Conv2d(depth_bottleneck, depth, 1, bias=False)
         self.conv3_bn = _bn(depth, bn_momentum)
 
     def forward(self, x):
@@ -166,16 +189,19 @@ class ResNetV1(nn.Module):
     """Slim resnet_v1_{50,101,152}: root conv+pool, 4 bottleneck blocks.
 
     ``forward`` takes NCHW and returns the pre-pool NCHW feature map
-    (B, 2048, h, w) when ``global_pool=False``, else (B, 2048).  The convs
-    are drawn from ``generator`` as Flax draws them.
+    (B, 2048, h, w) in ``dtype`` when ``global_pool=False``, else
+    (B, 2048).  The convs are drawn from ``generator`` as Flax draws
+    them; the parameters are float32 whatever ``dtype``.
     """
 
     def __init__(self, stage_sizes: Sequence[int],
                  stage_strides: Sequence[int] = (2, 2, 2, 1),
                  bn_momentum: float = 0.997,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, bias=False)
+        self.dtype = dtype
+        self.conv1 = Conv2d(3, 64, 7, stride=2, bias=False)
         self.conv1_bn = _bn(64, bn_momentum)
         self.unit_names = []
         depth_in = 64
@@ -196,6 +222,7 @@ class ResNetV1(nn.Module):
                 lecun_normal_(m.weight, generator)
 
     def forward(self, x, global_pool: bool = True):
+        x = x.to(self.dtype)
         x = conv2d_same(x, self.conv1, 7, 2)
         x = F.relu(self.conv1_bn(x))
         x = max_pool_same(x)

@@ -24,10 +24,15 @@ iterator it reads ``cfg.train_pattern`` through the port's input pipeline
 (``data/grain_pipeline.py``, JPEG decode on the device), whose position
 is saved with each checkpoint; ``data_echo`` repeats each batch.
 
+With ``bf16_backbone`` the backbone computes in bfloat16
+(``models/resnet.py``); the parameters, the gradients, the optimizer, the
+clip, the EMA, the losses and the logits stay float32.  A video dataset
+trains on one fresh frame per video an epoch, or with ``clip_frames`` > 1
+on TSN clips of (B, T, H, W, 3) (``data/grain_pipeline.py``).
+
 Not ported yet, and raising ``NotImplementedError``: a mesh
-(``mesh_shape`` over more than one device) and ``zero1``,
-``bf16_backbone``, ``remat_units``, clips (``clip_frames`` > 1) and the
-video input path.
+(``mesh_shape`` over more than one device), ``zero1`` and
+``remat_units``.
 """
 
 from __future__ import annotations
@@ -105,18 +110,16 @@ def normalize_images(images: torch.Tensor) -> torch.Tensor:
 def build_model(cfg: config_lib.TrainConfig, device=None,
                 generator: torch.Generator | None = None) -> ActionModel:
     """The config's ActionModel in eval mode on ``device`` (default
-    ``cuda``), drawn from ``generator``.  The backbone runs in float32,
-    which is what the ``mpii_rank1_224`` preset asks for;
-    ``bf16_backbone`` is not ported yet and raises."""
-    if cfg.bf16_backbone:
-        raise NotImplementedError(
-            "bf16_backbone is not ported yet; set bf16_backbone=False")
+    ``cuda``), drawn from ``generator``.  The backbone computes in
+    bfloat16 with ``bf16_backbone``, else in float32; the parameters, the
+    heads and the logits are float32 either way."""
     spec = get_dataset(cfg.dataset)
     return get_model(
         cfg.backbone, num_classes=spec.num_classes, pooling=cfg.pooling,
         rank=cfg.rank, num_joints=spec.num_joints,
         bn_momentum=cfg.bn_momentum, image_size=cfg.image_size,
-        freeze_bn=cfg.freeze_bn, generator=generator, device=device)
+        freeze_bn=cfg.freeze_bn, generator=generator, device=device,
+        dtype=torch.bfloat16 if cfg.bf16_backbone else torch.float32)
 
 
 # -- optimizer ----------------------------------------------------------------
@@ -436,14 +439,15 @@ def _train_input(cfg: config_lib.TrainConfig, spec: DatasetSpec,
     if train_iter is None:
         if not cfg.train_pattern:
             raise ValueError("no train_iter and no cfg.train_pattern")
+        video_sampling = spec.is_video and cfg.video_frame_sampling
         owned = train_iter = grain_pipeline.make_train_iterator(
             cfg.train_pattern, spec, batch_size=cfg.batch_size,
             image_size=cfg.image_size, resize_min=cfg.resize_min_resolved,
             resize_max=cfg.resize_max_resolved, seed=cfg.seed,
             num_workers=cfg.grain_workers,
             transfer_uint8=cfg.transfer_uint8,
-            video_sampling=spec.is_video and cfg.video_frame_sampling,
-            device=dev)
+            video_sampling=video_sampling, device=dev,
+            **({"clip_frames": cfg.clip_frames} if video_sampling else {}))
     if hasattr(train_iter, "get_state"):
         # the state checkpointed is the last CONSUMED batch's, not the
         # prefetch position, so the resume is exact
@@ -482,9 +486,7 @@ def train(cfg: config_lib.TrainConfig, *, train_iter: Iterable | None = None,
     ``threading.Event``): when set, by the caller or by the SIGTERM
     handler installed here (on the main thread, with a manager), the loop
     checkpoints the step in flight and returns."""
-    if cfg.clip_frames > 1:
-        raise NotImplementedError("clip training (clip_frames > 1) is not "
-                                  "ported yet")
+    _check_clips(cfg, get_dataset(cfg.dataset))
     dev = resolve_device(device)
     state, spec = create_state(cfg, device=dev)
     resume_step = (checkpoint_manager.latest_step()
@@ -554,6 +556,23 @@ def train(cfg: config_lib.TrainConfig, *, train_iter: Iterable | None = None,
         if owned is not None:
             owned.close()
     return state, history
+
+
+def _check_clips(cfg: config_lib.TrainConfig, spec: DatasetSpec) -> None:
+    """The JAX package's config errors of clip training: clips need a
+    video dataset, and the Grain pipeline with per-epoch frame sampling
+    (the TSN sampler runs on the video index)."""
+    if cfg.clip_frames <= 1:
+        return
+    if not spec.is_video:
+        raise ValueError(
+            f"clip_frames={cfg.clip_frames} requires a video dataset "
+            f"(per-frame records with video ids); {cfg.dataset} is not one")
+    if cfg.input_pipeline != "grain" or not cfg.video_frame_sampling:
+        raise ValueError(
+            f"clip_frames={cfg.clip_frames} requires "
+            "input_pipeline='grain' with video_frame_sampling=True (TSN "
+            "segment sampling runs on the random-access video index)")
 
 
 def _normalize_iter_state(state, data_echo: int):

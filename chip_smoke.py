@@ -11,12 +11,14 @@ Phases; any failure raises and the process exits non-zero:
    version at the serving and eval shapes (B in {1, 8, 16, 32, 48}: the
    serving buckets, an eval batch and a 3-crop eval batch; N=49, F=2048,
    C=393, P=1), at rank 5 (B=8; N=196, C=600 and N=225, C=393) and at the
-   hmdb51_clip8 clip (B=8, N=392, C=51, P=1), each with float32 and
-   bfloat16 X.  Checks that two launches give the same bits.  Prints, per
-   case, each kernel's launch plan, and for each kernel and for the
-   fused_pool_logits pair the error, the kernel's, the plain version's
-   and the library composition's times, the bound and the share of it,
-   beside the timer's own floor.
+   hmdb51_clip8 clip (B=8, N=392, C=51, P=1), an hmdb51_rgb batch (B=64,
+   N=49, C=51, P=1) and mpii_pose_attention's 448 px batch (B=32, N=196,
+   C=393, P=1), each with float32 and bfloat16 X.  Checks that two
+   launches give the same bits.  Prints, per case, each kernel's launch
+   plan, and for each kernel and for the fused_pool_logits pair the
+   error, the kernel's, the plain version's and the library
+   composition's times, the bound and the share of it, beside the
+   timer's own floor.
 3. Serving: the ``mpii_rank1_224`` Predictor (ResNet-101, 393 classes,
    rank 1, 224 px, float32, buckets 1/8/32) with seeded random weights in
    the Flax layout, carried across by the weight bridge.  12 concurrent
@@ -76,12 +78,37 @@ Phases; any failure raises and the process exits non-zero:
    (MPII's size; the train side with 0 and 2 reader threads); from the
    1280x720 records, the train step fed from records against a resident
    batch and the eval loop from records against injected arrays.
-7. A ``kernels`` JSON line (``launches`` from phase 3's serving run for
+7. BASELINE configs #2-#4 at full width (ResNet-101) with the bfloat16
+   backbone, from seeded records of ``records.write_synthetic_dataset``
+   whose JPEGs are the fixtures (the card's machine has no JPEG
+   encoder).  First, torch's batch norm on a bfloat16 tensor with
+   float32 parameters against Flax's float32 formula rounded once.
+   ``hico_multilabel`` (448 px, batch 32, ``freeze_bn``, sigmoid loss):
+   the bfloat16 step against the float32 one on the card (the gap of
+   ``precision.py --mode bf16``), a bfloat16 step at batch 2 card vs
+   CPU, the bfloat16 and float32 steps timed in turns, 4 ``train.train``
+   steps from records, 3-crop multicrop eval of 16 records with
+   ``mAP_ko`` of the seeded weights (its first batch's logits card vs
+   CPU, at least 2x closer than the card's float32-backbone logits, a
+   control) and
+   serving at buckets 1/8/32 from the run's checkpoint.  ``mpii_pose_attention`` (448 px,
+   batch 32, pose loss 0.1): a step at batch 2 card vs CPU (the pose
+   loss among the losses) and 3 steps from records with keypoints.
+   ``hmdb51_rgb`` (224 px, batch 64) from records of 80 videos x 8
+   frames (frame k under EXIF orientation 1 + k % 4): ``train_cli`` for 3 steps across an epoch boundary (one frame
+   a video an epoch), a SIGTERM at step 1 (mid-epoch) resumed to 3 bit
+   for bit, and ``eval_cli`` of 8 videos with per-video accuracy.
+   ``hmdb51_clip8`` (8 clips of 8 frames): 3 steps from the same
+   records and clip eval of the seeded weights at 2 clips x 3 crops a
+   video (its first batch card vs CPU, with the same control).  Each
+   kernel launches once a step, an eval batch and a serving call.
+8. A ``kernels`` JSON line (``launches`` from phase 3's serving run for
    the pooling kernels and from phase 6's ``train_cli`` for the colour
    kernel; ``train_launches`` from phase 4's ``train``, ``eval_launches``
    from phase 5's evaluation, ``pipeline_train_launches`` and
-   ``pipeline_eval_launches`` from phase 6's CLIs, each kernel counted
-   over each run), then the last line ``{"ok": true, "device": {...}}``.
+   ``pipeline_eval_launches`` from phase 6's CLIs, and one column each
+   for phase 7's runs, each kernel counted over each run), then the last
+   line ``{"ok": true, "device": {...}}``.
 
 The kernels (``csrc/attn_pool.cu``, ``csrc/jpeg_decode.cu`` with ``nvcc``,
 ``csrc/tfrecord_index.cc`` with the host compiler) build at once, each in
@@ -95,11 +122,14 @@ phase 6, of the decode alone and of train steps fed from records.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import hashlib
+import itertools
 import json
 import os
+import pathlib
 import signal
 import struct
 import subprocess
@@ -116,6 +146,7 @@ from attentionalpoolingaction_torch import config as config_lib
 from attentionalpoolingaction_torch import convert
 from attentionalpoolingaction_torch import eval_cli
 from attentionalpoolingaction_torch import evaluate
+from attentionalpoolingaction_torch import precision
 from attentionalpoolingaction_torch import serving
 from attentionalpoolingaction_torch import train
 from attentionalpoolingaction_torch import train_cli
@@ -155,6 +186,37 @@ TRAIN_STAT_RTOL = 1e-3
 TRAIN_LEAF_L2 = 0.2
 TRAIN_TOTAL_L2 = 0.15
 TRAIN_HEAD_L2 = 4e-3
+# Phase 7, the bfloat16 backbone.  ``python -m
+# attentionalpoolingaction_torch.precision --mode bf16`` measures the
+# bfloat16 step against the float32 one from the same weights and batch,
+# TF32 off.  At full width on an H100 (hico_multilabel and
+# mpii_pose_attention at 448 px, batch 32 and 2; hmdb51_rgb, batch 64;
+# hmdb51_clip8, batch 8) the largest gaps were: features 0.94% in L2,
+# logits 0.44%, the momentum buffers 2.6% (batch 2; 0.8% at 32), the
+# loss 2.9e-3 relative (the clip), the pose loss 1.8e-3, grad_norm 3.5e-3;
+# on the card's host CPU the same (loss 3.5e-4 and grad_norm 3.0e-3 at
+# hico's batch 2).  Each limit is about 3x the largest reading.  The gap
+# must also be there: features and logits at least a third of the
+# smallest reading (0.93% and 0.31%), so that a backbone that stayed in
+# float32 (a gap of 0) fails.
+BF16_GAP = {"loss/total_rel": 1e-2, "grad_norm_rel": 1e-2,
+            "logits_l2": 1.5e-2, "features_l2": 3e-2,
+            "momentum_total_l2": 0.08}
+BF16_GAP_MIN = {"logits_l2": 1e-3, "features_l2": 3e-3}
+# card vs CPU, both bfloat16, at a cut batch: two bfloat16 roundings of
+# one float32 step differ by up to ~sqrt(2) times either's gap, ~3e-3 at
+# the most for a loss or grad_norm (pose loss included)
+BF16_CPU_RTOL = 1e-2
+# Eval logits, card vs CPU, both bfloat16, against a control: the card's
+# logits of the same rows with the backbone in float32, which are off the
+# CPU's by the bfloat16 gap itself.  The two devices round mostly alike,
+# so the card's bfloat16 logits lie well closer to the CPU's than the
+# control does: 4.2x (hico_multilabel multicrop, 6.3e-4 vs 2.6e-3 in L2)
+# and 3.3x (hmdb51_clip8 clips, 1.9e-3 vs 6.1e-3) on an H100.  A card
+# that stayed in float32 reads ~1x; the limit is 2x.  No one absolute
+# limit lies between both pairs with room: the clips' own rounding gap
+# is twice the images'.
+BF16_EVAL_CONTROL_RATIO = 2.0
 # Phase 5: metrics of the card's and the CPU's logits.  The logits agree
 # within CPU_RTOL of the largest; a metric moves only where that flips the
 # order of two scores.  One swap moves one class's AP from 1/r to
@@ -321,8 +383,12 @@ def phase_kernels(timer):
              for b in (1, 8, 16, 32, 48)]
     cases += [(8, n, c, 5, dt) for n, c in ((196, 600), (225, 393))
               for dt in (torch.float32, torch.bfloat16)]
-    # the hmdb51_clip8 clip: 8 frames of 7x7 positions folded into N
-    cases += [(8, 392, 51, 1, dt) for dt in (torch.float32, torch.bfloat16)]
+    # the hmdb51_clip8 clip: 8 frames of 7x7 positions folded into N; an
+    # hmdb51_rgb batch of 64 frames; the 448 px batches of
+    # mpii_pose_attention and hico_multilabel
+    cases += [(b, n, c, 1, dt) for b, n, c in ((8, 392, 51), (64, 49, 51),
+                                               (32, 196, 393), (32, 196, 600))
+              for dt in (torch.float32, torch.bfloat16)]
     rows = []
     log("case                        kernel            rel_err   "
         "ms       plain_ms  lib_ms    bound_ms  share")
@@ -1436,36 +1502,38 @@ def digesting(digests):
         train.make_train_step = make
 
 
-def check_resume(paths, workdir, echo):
-    """10 steps from records straight, against a real SIGTERM at step 5
-    and a resumed run to 10: losses and batch digests equal bit for bit.
-    cuDNN is held to deterministic algorithms for it (some of its
-    weight-gradient convolutions sum in a varying order)."""
+def check_resume(paths, workdir, echo, preset="mpii_rank1_224", stop=5,
+                 steps=10, **overrides):
+    """``steps`` steps of ``preset`` from records straight, against a real
+    SIGTERM at step ``stop`` and a resumed run to ``steps``: losses and
+    batch digests equal bit for bit.  cuDNN is held to deterministic
+    algorithms for it (some of its weight-gradient convolutions sum in a
+    varying order)."""
     cfg = config_lib.get_config(
-        "mpii_rank1_224", train_pattern=paths["train"], log_every=1,
-        checkpoint_every=1000, data_echo=echo)
+        preset, train_pattern=paths["train"], log_every=1,
+        checkpoint_every=1000, data_echo=echo, **overrides)
     torch.backends.cudnn.deterministic = True
     try:
         straight_d, cut_d = [], []
         with digesting(straight_d):
-            state, hist = train.train(cfg, num_steps=10, device="cuda")
+            state, hist = train.train(cfg, num_steps=steps, device="cuda")
         del state
         mgr = checkpoint.make_manager(
-            os.path.join(workdir, f"resume_echo{echo}"))
+            os.path.join(workdir, f"resume_{preset}_echo{echo}"))
 
-        def terminate_at_5(step, state, metrics):
-            if step == 5:
+        def terminate(step, state, metrics):
+            if step == stop:
                 os.kill(os.getpid(), signal.SIGTERM)
 
         with digesting(cut_d):
-            state, hist1 = train.train(cfg, num_steps=10, device="cuda",
+            state, hist1 = train.train(cfg, num_steps=steps, device="cuda",
                                        checkpoint_manager=mgr,
-                                       hooks=[terminate_at_5])
-            stopped, steps = state.step, mgr.all_steps()
+                                       hooks=[terminate])
+            stopped, kept = state.step, mgr.all_steps()
             del state
             saved = json.loads(
-                (mgr.directory / "grain_iter_5_p0.json").read_text())
-            state, hist2 = train.train(cfg, num_steps=10, device="cuda",
+                (mgr.directory / f"grain_iter_{stop}_p0.json").read_text())
+            state, hist2 = train.train(cfg, num_steps=steps, device="cuda",
                                        checkpoint_manager=mgr)
             del state
     finally:
@@ -1473,16 +1541,16 @@ def check_resume(paths, workdir, echo):
     want = [h["loss/total"] for h in hist]
     got = [h["loss/total"] for h in hist1 + hist2]
     mid_echo = echo == 1 or saved.get("phase") == 1
-    if stopped != 5 or steps != [5] or got != want or \
-            cut_d != straight_d or len(want) != 10 or not mid_echo:
+    if stopped != stop or kept != [stop] or got != want or \
+            cut_d != straight_d or len(want) != steps or not mid_echo:
         raise AssertionError(
-            f"resume from records, data_echo={echo}: stopped at {stopped}, "
-            f"steps {steps}, saved stream {saved}; losses {got} vs {want}; "
-            f"batches equal {cut_d == straight_d}")
-    log(f"resume from records, data_echo={echo}: SIGTERM at 5 (stream "
-        f"{saved}), resumed to 10: losses and the {len(cut_d)} batch "
-        f"digests equal the uninterrupted run's bit for bit; losses "
-        + ", ".join(f"{v:.4f}" for v in want))
+            f"{preset} resume from records, data_echo={echo}: stopped at "
+            f"{stopped}, steps {kept}, saved stream {saved}; losses {got} "
+            f"vs {want}; batches equal {cut_d == straight_d}")
+    log(f"{preset} resume from records, data_echo={echo}: SIGTERM at "
+        f"{stop} (stream {saved}), resumed to {steps}: losses and the "
+        f"{len(cut_d)} batch digests equal the uninterrupted run's bit for "
+        f"bit; losses " + ", ".join(f"{v:.4f}" for v in want))
     return {"losses": want, "saved_stream": saved}
 
 
@@ -1756,6 +1824,505 @@ def phase_records(card, timer, profile=False):
     return out
 
 
+# -- phase 7 -----------------------------------------------------------------
+
+# The small fixtures, HMDB51's frame size class (320x240): the frames of a
+# video record are one of them, frame k under EXIF orientation 1 + k % 4
+# (those that keep the size), so that each frame of a video decodes to
+# other pixels and the frame picks and their order show in the batches.
+FRAME_FIXTURES = ("odd_517x333.jpg", "gray_400x300.jpg", "yuv422_480x360.jpg")
+N_VIDEOS, N_EVAL_VIDEOS, FRAMES_PER_VIDEO = 80, 8, 8
+CONFIG_EVAL_KEYS = {
+    "hmdb51_rgb": {"num_examples", "accuracy", "per_frame_accuracy",
+                   "num_videos", "step"}}
+
+
+def with_orientation(data, orientation):
+    """``data`` with an EXIF APP1 segment right after SOI whose IFD0 holds
+    the orientation tag alone (little-endian)."""
+    entry = ((0x0112).to_bytes(2, "little") + (3).to_bytes(2, "little")
+             + (1).to_bytes(4, "little") + orientation.to_bytes(2, "little")
+             + b"\0\0")
+    tiff = (b"II" + (42).to_bytes(2, "little") + (8).to_bytes(4, "little")
+            + (1).to_bytes(2, "little") + entry + bytes(4))
+    payload = b"Exif\0\0" + tiff
+    return (data[:2] + b"\xff\xe1" + (len(payload) + 2).to_bytes(2, "big")
+            + payload + data[2:])
+
+
+def fixture_encoder(datas, per=1):
+    """An ``encode_jpeg`` for ``records.write_synthetic_dataset`` that
+    hands out the JPEG fixtures in turn, ``per`` records each, whatever
+    image it is given: the card's machine has no JPEG encoder.  With
+    ``per`` > 1 (the frames of a video) record k of a run is under EXIF
+    orientation 1 + k % 4.  The records' labels, keypoints and video ids
+    are the writer's."""
+    count = itertools.count()
+
+    def encode(image):
+        i = next(count)
+        data = datas[i // per % len(datas)]
+        return data if per == 1 else with_orientation(data, 1 + i % per % 4)
+    return encode
+
+
+def config_records(workdir, name, datas, n_train, n_eval, image_size,
+                   per=1):
+    """Seeded train and eval records of ``name``'s dataset schema from
+    ``records.write_synthetic_dataset``, the JPEGs from ``datas``,
+    indexed; video records hold FRAMES_PER_VIDEO frames a video."""
+    spec = train.get_dataset(config_lib.get_config(name).dataset)
+    paths = {}
+    for split, n, seed in (("train", n_train, 11), ("val", n_eval, 12)):
+        paths[split] = os.path.join(workdir, f"{name}_{split}.tfrecord")
+        records.write_synthetic_dataset(
+            paths[split], spec, n, image_size=image_size, seed=seed,
+            frames_per_video=FRAMES_PER_VIDEO,
+            encode_jpeg=fixture_encoder(datas, per))
+        if native_io.build_index(paths[split]) != n:
+            raise AssertionError(f"{paths[split]} does not hold {n} records")
+    return paths
+
+
+def check_bn_bf16():
+    """Torch's batch norm on a bfloat16 CUDA tensor with float32 scale,
+    offset and statistics (``models/resnet.BatchNorm``), train and eval
+    mode, against Flax's float32 formula rounded once to bfloat16: the
+    share of outputs that differ, and the same share for the formula
+    computed in bfloat16 (what a kernel that did not upcast would give)."""
+    from attentionalpoolingaction_torch.models.resnet import BatchNorm
+    g = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for mode in ("train", "eval"):
+        bn = BatchNorm(256, eps=1e-5, momentum=0.003).cuda().train(
+            mode == "train")
+        with torch.no_grad():
+            bn.weight.uniform_(0.5, 1.5, generator=g)
+            bn.bias.normal_(generator=g)
+            bn.running_mean.normal_(generator=g)
+            bn.running_var.uniform_(0.5, 1.5, generator=g)
+        x = (torch.randn(32, 256, 56, 56, device="cuda", generator=g) * 3
+             + 1).to(torch.bfloat16).contiguous(
+                 memory_format=torch.channels_last)
+        mean0, var0 = bn.running_mean.clone(), bn.running_var.clone()
+        y = bn(x)
+        xf = x.float()
+        if mode == "train":
+            mean = xf.mean((0, 2, 3))
+            var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp(min=0)
+            moved = float((bn.running_mean - mean0.lerp(mean, 0.003)
+                           ).abs().max())
+        else:
+            mean, var, moved = mean0, var0, None
+        mul = torch.rsqrt(var + 1e-5) * bn.weight
+
+        def per_channel(t):
+            return t[None, :, None, None]
+
+        want = ((xf - per_channel(mean)) * per_channel(mul)
+                + per_channel(bn.bias)).to(torch.bfloat16)
+        low = ((x - per_channel(mean).bfloat16()) * per_channel(mul).bfloat16()
+               + per_channel(bn.bias).bfloat16())
+        out[mode] = {"dtype": str(y.dtype).removeprefix("torch."),
+                     "differ": float((y != want).float().mean()),
+                     "bf16_math_differs": float((low != want).float().mean()),
+                     "running_mean_vs_f32": moved}
+        # float32 statistics summed in another order move a few outputs
+        # across a bfloat16 rounding boundary (~1e-3 of them on the CPU);
+        # bfloat16 arithmetic would move ~half of them
+        if y.dtype != torch.bfloat16 or out[mode]["differ"] > 1e-2 or (
+                moved is not None and moved > 1e-6):
+            raise AssertionError(f"batch norm on bfloat16, {mode}: {out}")
+    log(f"batch norm, bfloat16 input and float32 parameters on the card "
+        f"(32x256x56x56): share of outputs off Flax's float32 formula "
+        f"rounded once: train {out['train']['differ']:.2e}, eval "
+        f"{out['eval']['differ']:.2e} (the formula in bfloat16 would be off "
+        f"on {out['train']['bf16_math_differs']:.1%}); running mean vs "
+        f"float32 {out['train']['running_mean_vs_f32']:.1e}")
+    return out
+
+
+def check_bf16_gap(cfg, variables, batch):
+    """The bfloat16 step against the float32 one on the card, the same
+    weights and batch, TF32 off (``precision.bf16_gap``), within the
+    BF16_GAP limits and above the BF16_GAP_MIN ones."""
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        gap = precision.bf16_gap(cfg, variables, batch, "cuda")
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    for k, tol in BF16_GAP.items():
+        if gap.get(k) is not None and not gap[k] < tol:
+            raise AssertionError(f"{cfg.dataset} bf16 vs f32 gap: {k} "
+                                 f"{gap[k]:.3e} >= {tol}")
+    for k, least in BF16_GAP_MIN.items():
+        if not gap[k] > least:
+            raise AssertionError(f"{cfg.dataset} bf16 vs f32 gap: {k} "
+                                 f"{gap[k]:.3e} <= {least}: is the backbone "
+                                 f"in bfloat16?")
+    log(f"bf16 vs f32 on the card, batch {cfg.batch_size}, TF32 off: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in gap.items()
+                    if isinstance(v, float)))
+    return gap
+
+
+def check_bf16_cpu(cfg, variables, rng, batch_size=2):
+    """One bfloat16 step at a cut batch on the card and on the CPU, the
+    same weights and batch (TF32 off): each loss and ``grad_norm`` within
+    BF16_CPU_RTOL."""
+    cfg = dataclasses.replace(cfg, batch_size=batch_size)
+    spec = train.get_dataset(cfg.dataset)
+    batch = precision.synthetic_batch(rng, cfg, spec)
+    metrics = {}
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cuda", "cpu"):
+            t0 = time.monotonic()
+            state, _ = train.create_state(cfg, device=dev,
+                                          variables=variables)
+            _, m = train.make_train_step(spec, cfg)(
+                state, train.batch_to_device(batch, dev))
+            metrics[dev] = {k: float(v) for k, v in m.items()}
+            metrics[f"{dev}_s"] = time.monotonic() - t0
+            del state
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    errs = {}
+    for k, want in metrics["cpu"].items():
+        errs[k] = abs(metrics["cuda"][k] - want) / abs(want)
+        if not (np.isfinite(metrics["cuda"][k])
+                and errs[k] < BF16_CPU_RTOL):
+            raise AssertionError(f"{cfg.dataset} bf16 step at batch "
+                                 f"{batch_size}, card vs CPU: {k} "
+                                 f"{metrics['cuda'][k]} vs {want}")
+    log(f"bf16 step, batch {batch_size}, card vs CPU (TF32 off; the CPU "
+        f"step {metrics['cpu_s']:.1f} s): " + ", ".join(
+            f"{k} {v:.2e}" for k, v in errs.items()))
+    return errs
+
+
+def step_times_in_turns(cfg, variables, batch, rounds=6):
+    """Median wall time of the bfloat16 and the float32 train step (TF32
+    on), the same weights and resident batch, in turns."""
+    spec = train.get_dataset(cfg.dataset)
+    steps, times = {}, {"bf16": [], "f32": []}
+    dev_batch = train.batch_to_device(batch, "cuda")
+    for kind in times:
+        c = dataclasses.replace(cfg, bf16_backbone=kind == "bf16")
+        state, _ = train.create_state(c, device="cuda", variables=variables)
+        step = train.make_train_step(spec, c)
+        steps[kind] = (state, step)
+        for _ in range(2):
+            step(state, dev_batch)
+    for r in range(rounds):
+        for kind in (("bf16", "f32") if r % 2 else ("f32", "bf16")):
+            state, step = steps[kind]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, dev_batch)
+            torch.cuda.synchronize()
+            times[kind].append(time.perf_counter() - t0)
+    out = {f"step_ms_{k}": float(np.median(v)) * 1e3 for k, v in times.items()}
+    out["images_per_s_bf16"] = cfg.batch_size / out["step_ms_bf16"] * 1e3
+    log(f"{cfg.dataset} train step, batch {cfg.batch_size}, "
+        f"{cfg.image_size} px, TF32 on: bf16 {out['step_ms_bf16']:.3f} ms, "
+        f"f32 {out['step_ms_f32']:.3f} ms (medians of {rounds}, in turns); "
+        f"{out['images_per_s_bf16']:.1f} images/s in bf16")
+    return out
+
+
+def host_batches(batches):
+    """Eval batches with their images brought to the host."""
+    return [{k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+             for k, v in b.items()} for b in batches]
+
+
+def eval_card_vs_cpu(what, cfg, restored, batches, cpu_batches=1):
+    """The eval logits of ``batches`` (decoded on the card) on the card,
+    counted and timed (after a warm-up pass), and of the first
+    ``cpu_batches`` of them on the CPU (TF32 off), and the control: the
+    card's logits of the same batches with the backbone in float32.  The
+    card's relative L2 difference from the CPU's must be under the
+    control's by BF16_EVAL_CONTROL_RATIO.  Also the card's eval rows a
+    second."""
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        evaluator = evaluate.Evaluator(cfg, device="cuda")
+        evaluator.logits(restored, iter(batches))
+        t0 = time.perf_counter()
+        card, launches = counted(
+            lambda: evaluator.logits(restored, iter(batches)))
+        rate = sum(int(b["mask"].sum()) for b in batches) / (
+            time.perf_counter() - t0)
+        cpu = evaluate.Evaluator(cfg, device="cpu").logits(
+            restored, iter(host_batches(batches[:cpu_batches])))
+        f32 = evaluate.Evaluator(
+            dataclasses.replace(cfg, bf16_backbone=False), device="cuda"
+        ).logits(restored, iter(batches[:cpu_batches]))
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    expect_launches(f"{what} eval: {len(batches)} batches", launches,
+                    len(batches))
+    n = len(cpu["logits"])
+
+    def off(logits):
+        return float(np.linalg.norm(logits[:n] - cpu["logits"])
+                     / np.linalg.norm(cpu["logits"]))
+
+    err, control = off(card["logits"]), off(f32["logits"])
+    if not err * BF16_EVAL_CONTROL_RATIO < control:
+        raise AssertionError(
+            f"{what} eval logits vs the CPU's in bfloat16: the card's "
+            f"{err:.3e}, the card's with a float32 backbone {control:.3e}, "
+            f"not {BF16_EVAL_CONTROL_RATIO}x apart")
+    log(f"{what} eval of {len(batches)} batches of injected crops on the "
+        f"card (TF32 off): {rate:.1f} rows/s; logits vs the CPU's "
+        f"{err:.3e} in L2 (the card with a float32 backbone {control:.3e})")
+    return card, cpu, err, control, launches, rate
+
+
+def serve_buckets(cfg, what, reps=5):
+    """``load_predictor`` of the latest step of ``cfg.workdir``, warmed up
+    with uint8 at buckets 1/8/32; each bucket's call counted (one launch
+    of each pooling kernel) and timed."""
+    pred = serving.load_predictor(cfg, buckets=(1, 8, 32), device="cuda")
+    pred.warmup()
+    rng = np.random.default_rng(9)
+    size, out, total = cfg.image_size, {}, collections.Counter()
+    for b in (1, 8, 32):
+        images = rng.integers(0, 256, (b, size, size, 3), np.uint8)
+        probs, launches = counted(lambda: pred.predict_arrays(images))
+        expect_launches(f"{what} serving at bucket {b}", launches, 1, ycc=0)
+        total.update(launches)
+        if probs.shape != (b, pred.spec.num_classes) or not (
+                np.isfinite(probs).all() and (probs >= 0).all()
+                and (probs <= 1).all()):
+            raise AssertionError(f"{what} serving at {b}: {probs.shape}")
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            pred.predict_arrays(images)
+            times.append(time.perf_counter() - t0)
+        out[b] = float(np.median(times)) * 1e3
+    log(f"{what} serving from step {pred.step} (bf16, uint8): median ms a "
+        f"call at buckets 1/8/32: "
+        + " / ".join(f"{v:.3f}" for v in out.values()))
+    return out, dict(total)
+
+
+def seeded_init(name, workdir, seed):
+    """A port checkpoint of ``name``'s model with ``precision``'s seeded
+    Flax-layout weights, to warm-start a run from (its heads fresh, as a
+    fine-tune from ImageNet weights starts); its directory."""
+    cfg = config_lib.get_config(name)
+    path = os.path.join(workdir, f"{name}_init")
+    state, _ = train.create_state(
+        cfg, device="cuda", variables=precision.seeded_variables(cfg, seed))
+    checkpoint.save(checkpoint.make_manager(path), state)
+    return path
+
+
+def train_from_records(name, paths, run_dir, steps, **overrides):
+    """``train.train`` of preset ``name`` for ``steps`` steps from its
+    records, with a checkpoint at the end; counted: one launch of each
+    pooling kernel a step."""
+    cfg = config_lib.get_config(
+        name, train_pattern=paths["train"], eval_pattern=paths["val"],
+        workdir=run_dir, log_every=1, checkpoint_every=steps, **overrides)
+    mgr = checkpoint.make_manager(os.path.join(run_dir, "checkpoints"))
+    t0 = time.perf_counter()
+    (state, hist), launches = counted(lambda: train.train(
+        cfg, num_steps=steps, device="cuda", checkpoint_manager=mgr))
+    wall = time.perf_counter() - t0
+    expect_launches(f"{name} train.train, {steps} steps", launches, steps)
+    losses = [h["loss/total"] for h in hist]
+    if state.step != steps or len(losses) != steps or \
+            not np.isfinite(losses).all():
+        raise AssertionError(f"{name} from records: {hist}")
+    log(f"{name} train.train from records: {steps} steps in {wall:.1f} s "
+        f"(state and a save included), losses "
+        + ", ".join(f"{v:.4f}" for v in losses) + f"; launches {launches}")
+    return cfg, state, mgr, {"losses": losses, "launches": launches,
+                             "history": hist}
+
+
+def phase_hico(card, datas, workdir):
+    """hico_multilabel (BASELINE config #2) at full width: the bf16 gap,
+    card vs CPU, bf16 vs f32 step times, train.train from records, 3-crop
+    multicrop eval with mAP_ko card vs CPU, serving from the checkpoint."""
+    name = "hico_multilabel"
+    cfg = config_lib.get_config(name)
+    spec = train.get_dataset(cfg.dataset)
+    out = {"config": name, "card": card}
+    variables = precision.seeded_variables(cfg, 0)
+    rng = np.random.default_rng(21)
+    batch = precision.synthetic_batch(rng, cfg, spec)
+    out["gap"] = check_bf16_gap(cfg, variables, batch)
+    out["cpu"] = check_bf16_cpu(cfg, variables, rng)
+    out.update(step_times_in_turns(cfg, variables, batch))
+    del batch
+    paths = config_records(workdir, name, datas, 4 * cfg.batch_size, 16,
+                           cfg.image_size)
+    run_dir = os.path.join(workdir, name)
+    init = seeded_init(name, workdir, 0)
+    run_cfg, state, mgr, out["train"] = train_from_records(
+        name, paths, run_dir, 4, init_checkpoint=init)
+    del state
+    eval_cfg = dataclasses.replace(run_cfg, eval_multicrop=3,
+                                   eval_batch_size=8)
+    # the seeded weights, not the trained step: 4 steps at the preset's
+    # learning rate from random weights blow the losses up
+    restored = checkpoint.restore_for_eval(checkpoint.make_manager(init))
+    batches = list(evaluate.make_eval_input(eval_cfg, spec, device="cuda"))
+    card_l, cpu_l, err, control, out["eval_launches"], \
+        out["eval_rows_per_s"] = eval_card_vs_cpu(name, eval_cfg, restored,
+                                                  batches)
+    card_m = evaluate.compute_metrics(eval_cfg, card_l)
+    if not {"mAP", "mAP_ko"} <= set(card_m) or not all(
+            np.isfinite(card_m[k]) for k in ("mAP", "mAP_ko")):
+        raise AssertionError(f"{name} multicrop eval: {card_m}")
+    # The metrics are not compared card vs CPU: with seeded random weights
+    # a class's scores over the images differ by less than the two
+    # devices' bfloat16 rounding, so almost every class (599-600 of 600 on
+    # an H100) ranks its images otherwise on the two, and AP follows
+    # the ranking alone.  The logits' L2 above binds; compute_metrics is
+    # held to the JAX package's on the CPU
+    # (tests/test_torch_metrics.py, test_torch_evaluate.py).
+    n = len(cpu_l["logits"])
+    cut = evaluate.compute_metrics(
+        eval_cfg, {k: v[:n] for k, v in card_l.items()})
+    cpu_m = evaluate.compute_metrics(eval_cfg, cpu_l)
+    out["eval"] = {"metrics": card_m, "logits_l2_vs_cpu": err,
+                   "logits_l2_f32_control": control,
+                   "card_metrics_first_batch": cut,
+                   "cpu_metrics_first_batch": cpu_m}
+    log(f"{name} 3-crop multicrop eval of 16 records on the card: "
+        f"{card_m}; first batch: mAP {cut['mAP']:.4f} (card) vs "
+        f"{cpu_m['mAP']:.4f} (CPU), mAP_ko {cut['mAP_ko']:.4f} vs "
+        f"{cpu_m['mAP_ko']:.4f}")
+    out["serve_ms"], out["serve_launches"] = serve_buckets(run_cfg, name)
+    return out
+
+
+def phase_pose(card, datas, workdir):
+    """mpii_pose_attention (BASELINE config #3) at full width: train.train
+    from records with keypoints, and the pose loss card vs CPU."""
+    name = "mpii_pose_attention"
+    cfg = config_lib.get_config(name)
+    out = {"config": name, "card": card}
+    variables = precision.seeded_variables(cfg, 1)
+    out["cpu"] = check_bf16_cpu(cfg, variables, np.random.default_rng(22))
+    if "loss/pose" not in out["cpu"]:
+        raise AssertionError(f"{name}: no pose loss in {out['cpu']}")
+    paths = config_records(workdir, name, datas, 3 * cfg.batch_size, 8,
+                           cfg.image_size)
+    _, state, _, out["train"] = train_from_records(
+        name, paths, os.path.join(workdir, name), 3,
+        init_checkpoint=seeded_init(name, workdir, 1))
+    if not all("loss/pose" in h for h in out["train"]["history"]):
+        raise AssertionError(f"{name}: no pose loss while training")
+    del state
+    return out
+
+
+def phase_hmdb(card, datas, workdir):
+    """hmdb51_rgb (BASELINE config #4) and hmdb51_clip8 at full width from
+    video records: train_cli across an epoch boundary, a mid-epoch resume
+    bit for bit, eval_cli's per-video accuracy; clips: train.train and
+    clip eval (2 clips x 3 crops) card vs CPU."""
+    out = {"card": card}
+    frames = [d for n, d in zip(*datas) if n in FRAME_FIXTURES]
+    paths = config_records(workdir, "hmdb51_rgb", frames,
+                           N_VIDEOS * FRAMES_PER_VIDEO,
+                           N_EVAL_VIDEOS * FRAMES_PER_VIDEO, 64,
+                           per=FRAMES_PER_VIDEO)
+    # -- hmdb51_rgb: 3 steps of 64 videos, 80 a epoch -----------------------
+    name = "hmdb51_rgb"
+    run_dir = os.path.join(workdir, name)
+    init = seeded_init(name, workdir, 2)
+    t0 = time.perf_counter()
+    state, launches = counted(lambda: train_cli.main([
+        "--config", name, "--train_pattern", paths["train"],
+        "--workdir", run_dir, "--num_steps", "3", "--set",
+        "checkpoint_every=3", "--set", "log_every=1", "--set",
+        f"init_checkpoint={init!r}"]))
+    wall = time.perf_counter() - t0
+    expect_launches(f"{name} train_cli: 3 steps", launches, 3)
+    stream = json.loads((pathlib.Path(run_dir) / "checkpoints"
+                         / "grain_iter_3_p0.json").read_text())
+    if state.step != 3 or stream != {"epoch": 2, "position": 32}:
+        raise AssertionError(f"{name} train_cli: step {state.step}, stream "
+                             f"{stream}")
+    del state
+    out[name] = {"train_launches": launches, "train_cli_s": wall,
+                 "stream": stream}
+    log(f"{name} train_cli: 3 steps of 64 frames from {N_VIDEOS} videos "
+        f"(one frame each an epoch) in {wall:.1f} s; stream at {stream}; "
+        f"launches {launches}")
+    out[name]["resume"] = check_resume(paths, workdir, 1, preset=name,
+                                       stop=1, steps=3, init_checkpoint=init)
+    t0 = time.perf_counter()
+    printed, launches = counted(lambda: eval_cli.main([
+        "--config", name, "--workdir", run_dir, "--eval_pattern",
+        paths["val"], "--notb"]))
+    eval_s = time.perf_counter() - t0
+    line = printed[-1]
+    n_eval = N_EVAL_VIDEOS * FRAMES_PER_VIDEO
+    expect_launches(f"{name} eval_cli", launches, n_eval // 8)
+    if set(line) != CONFIG_EVAL_KEYS[name] or \
+            line["num_videos"] != N_EVAL_VIDEOS or \
+            line["num_examples"] != n_eval:
+        raise AssertionError(f"{name} eval_cli printed {line}")
+    out[name].update(eval_cli=line, eval_launches=launches,
+                     eval_cli_s=eval_s)
+    log(f"{name} eval_cli: {line} in {eval_s:.2f} s (model built, the "
+        f"step restored, {n_eval} frames decoded and evaluated); launches "
+        f"{launches}")
+
+    # -- hmdb51_clip8: clips of 8 frames -------------------------------------
+    name = "hmdb51_clip8"
+    init = seeded_init(name, workdir, 3)
+    run_cfg, state, mgr, out[name] = train_from_records(
+        name, paths, os.path.join(workdir, name), 3, init_checkpoint=init)
+    del state
+    eval_cfg = dataclasses.replace(run_cfg, eval_clips=2, eval_multicrop=3)
+    restored = checkpoint.restore_for_eval(checkpoint.make_manager(init))
+    batches = list(evaluate.make_eval_input(
+        eval_cfg, train.get_dataset("hmdb51"), device="cuda"))
+    if batches[0]["image"].shape != (8, 8, 224, 224, 3):
+        raise AssertionError(f"clip batch {batches[0]['image'].shape}")
+    card_l, cpu_l, err, control, launches, rate = eval_card_vs_cpu(
+        name, eval_cfg, restored, batches)
+    metrics = evaluate.compute_metrics(eval_cfg, card_l)
+    if metrics["num_videos"] != N_EVAL_VIDEOS or \
+            metrics["num_examples"] != N_EVAL_VIDEOS * 6 or \
+            "per_clip_accuracy" not in metrics:
+        raise AssertionError(f"{name} clip eval: {metrics}")
+    out[name].update(eval_launches=launches, eval=metrics,
+                     eval_logits_l2_vs_cpu=err,
+                     eval_logits_l2_f32_control=control,
+                     eval_rows_per_s=rate)
+    log(f"{name} clip eval (2 clips x 3 crops a video, {len(batches)} "
+        f"batches of 8 clips): {metrics}; first batch card vs CPU: logits "
+        f"{err:.3e} in L2; launches {launches}")
+    return out
+
+
+def phase_configs(card):
+    """BASELINE configs #2-#4 at full width with the bfloat16 backbone;
+    see the module docstring, phase 7."""
+    t_phase = time.monotonic()
+    out = {"bn": check_bn_bf16()}
+    names, datas, _, _ = load_fixtures()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_configs_") as d:
+        out["hico_multilabel"] = phase_hico(card, datas, d)
+        out["mpii_pose_attention"] = phase_pose(card, datas, d)
+        out.update(phase_hmdb(card, (names, datas), d))
+    out["phase_s"] = time.monotonic() - t_phase
+    log(f"phase 7 took {out['phase_s']:.1f} s (workdir removed)")
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -1779,6 +2346,9 @@ def main():
     del run["state"], run["batch"]
     ckpt_run = phase_checkpointed_run(card, profile=args.profile)
     rec_run = phase_records(card, timer, profile=args.profile)
+    configs = phase_configs(card)
+    hico, hmdb, clip8 = (configs[k] for k in (
+        "hico_multilabel", "hmdb51_rgb", "hmdb51_clip8"))
 
     def path_launches(name):
         """The launches of ``name`` on each main path, each counted over
@@ -1788,7 +2358,16 @@ def main():
                 "pipeline_train_launches":
                     rec_run["clis"]["pipeline_train_launches"][name],
                 "pipeline_eval_launches":
-                    rec_run["clis"]["pipeline_eval_launches"][name]}
+                    rec_run["clis"]["pipeline_eval_launches"][name],
+                "hico_train_launches": hico["train"]["launches"][name],
+                "hico_eval_launches": hico["eval_launches"][name],
+                "hico_serve_launches": hico["serve_launches"][name],
+                "pose_train_launches":
+                    configs["mpii_pose_attention"]["train"]["launches"][name],
+                "hmdb_rgb_train_launches": hmdb["train_launches"][name],
+                "hmdb_rgb_eval_launches": hmdb["eval_launches"][name],
+                "clip8_train_launches": clip8["launches"][name],
+                "clip8_eval_launches": clip8["eval_launches"][name]}
 
     kernels = []
     for name in ("saliency_summary", "project_logits"):
@@ -1821,6 +2400,7 @@ def main():
         **path_launches("ycc_to_rgb")})
     log(json.dumps({"records_run": {
         k: v for k, v in rec_run.items() if k not in ("clis", "resume")}}))
+    log(json.dumps({"configs_run": configs}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,12 @@
 """The port's ``evaluate`` against the JAX package's ``evaluate(cfg, state,
 eval_iter=...)`` on the same batches and the same weights, carried across
 by the weight bridge: MPII (mAP, accuracy), HICO multi-label with ``anno``
-(``mAP_ko``), HMDB per-video accuracy, and 3-crop multicrop, each with a
-last batch padded by rows of ``mask`` 0.  Also: evaluating the live
-training model leaves it as it was (parameters, BN statistics, train
-mode), ``eval_ema``, the ``Evaluator``'s reload, and the pipelined loop's
-bits against a loop that fetches each batch before the next.
+(``mAP_ko``), HMDB per-video accuracy (of frames, and of 2-frame clips),
+and 3-crop multicrop, each with a last batch padded by rows of ``mask``
+0.  Also: evaluating the live training model leaves it as it was
+(parameters, BN statistics, train mode), ``eval_ema``, the
+``Evaluator``'s reload, and the pipelined loop's bits against a loop
+that fetches each batch before the next.
 
 resnet_v1_50 at 32 px, eval batch 4.  Tolerances: logits 1e-4 relative
 (float32 through ResNet-50 in another order of summation, as
@@ -40,11 +41,13 @@ def make_cfg(dataset, **kw):
                 bf16_backbone=False, **kw)
 
 
-def make_batches(dataset, n, seed, crops=0):
-    """Numpy eval batches of 4: the last one padded with mask-0 rows."""
+def make_batches(dataset, n, seed, crops=0, frames=0):
+    """Numpy eval batches of 4: the last one padded with mask-0 rows;
+    (B, frames, S, S, 3) clips with ``frames``."""
     rng = np.random.default_rng(seed)
     c = NUM_CLASSES[dataset]
-    shape = (n, crops, SIZE, SIZE, 3) if crops else (n, SIZE, SIZE, 3)
+    lead = (n, crops or frames) if crops or frames else (n,)
+    shape = lead + (SIZE, SIZE, 3)
     images = rng.integers(0, 256, shape, np.uint8)
     if dataset == "hico":
         anno = rng.choice([-1, 0, 1], size=(n, c), p=[0.6, 0.3, 0.1])
@@ -84,6 +87,8 @@ CASES = {
     "hico": ("hico", {}, 0),
     "hmdb51": ("hmdb51", {}, 0),
     "mpii-multicrop3": ("mpii", {"eval_multicrop": 3}, 3),
+    # clip rows (2 clips of 2 frames a video), averaged per video
+    "hmdb51-clip2": ("hmdb51", {"clip_frames": 2, "eval_clips": 2}, 0),
 }
 
 
@@ -92,7 +97,8 @@ def test_evaluate_matches_jax(case):
     dataset, extra, crops = CASES[case]
     kw = make_cfg(dataset, **extra)
     params, stats = variables_for(dataset)
-    batches = make_batches(dataset, 10, seed=len(case), crops=crops)
+    batches = make_batches(dataset, 10, seed=len(case), crops=crops,
+                           frames=extra.get("clip_frames", 0))
 
     jax_evaluator = jax_eval.Evaluator(JaxConfig(**kw))
     want = jax_evaluator(types.SimpleNamespace(params=params,
@@ -123,7 +129,9 @@ def test_evaluate_matches_jax(case):
     if dataset == "hico":
         assert "mAP_ko" in got and got["mAP_ko"] != got["mAP"]
     if dataset == "hmdb51":
-        assert got["num_videos"] == 4 and "per_frame_accuracy" in got
+        per_row = ("per_clip_accuracy" if "clip_frames" in extra
+                   else "per_frame_accuracy")
+        assert got["num_videos"] == 4 and per_row in got
 
 
 def small_state(**kw):
@@ -202,12 +210,7 @@ def test_unported_eval_paths_raise():
                            device="cpu")
     evaluator = eval_lib.Evaluator(cfg, device="cpu")
     params, stats = variables_for("mpii")
-    # without an eval_iter the split is read from cfg.eval_pattern, but
-    # clip eval is not ported
-    with pytest.raises(NotImplementedError, match="clip eval"):
-        eval_lib.make_eval_input(
-            dataclasses.replace(cfg, dataset="hmdb51", clip_frames=8),
-            eval_lib.get_dataset("hmdb51"), device="cpu")
+    # without an eval_iter the split is read from cfg.eval_pattern
     with pytest.raises(ValueError, match="eval_pattern"):
         evaluator(ckpt_lib.EvalState(step=0, params=params,
                                      batch_stats=stats))

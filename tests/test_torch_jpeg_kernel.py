@@ -9,7 +9,9 @@ plain version, and the decode on the card against the JAX pipeline.
     the kernel equals its plain version bit for bit at odd sizes and
     padded planes, and nvJPEG + the kernel + the preprocessing hold the
     chip_smoke.py gate against the JAX goldens (mean |d| <= 1.5 levels, at
-    most 1% of pixels off by more than 8).
+    most 1% of pixels off by more than 8), also for streams with an EXIF
+    orientation of 1-8, and decodes queued behind other work on the
+    stream equal decodes on an idle card.
 """
 
 import io
@@ -32,6 +34,23 @@ OUT, RMIN = 224, 256
 def fixture(name):
     with open(os.path.join(FIXTURES, name), "rb") as f:
         return f.read()
+
+
+def with_exif_orientation(data, orientation, order):
+    """``data`` with an EXIF APP1 segment right after SOI whose IFD0 holds
+    the orientation tag alone, in byte order ``order`` (b"II" or b"MM")."""
+    o = "little" if order == b"II" else "big"
+    entry = ((0x0112).to_bytes(2, o) + (3).to_bytes(2, o)      # SHORT
+             + (1).to_bytes(4, o) + orientation.to_bytes(2, o) + b"\0\0")
+    tiff = (order + (42).to_bytes(2, o) + (8).to_bytes(4, o)
+            + (1).to_bytes(2, o) + entry + (0).to_bytes(4, o))
+    payload = b"Exif\0\0" + tiff
+    return (data[:2] + b"\xff\xe1" + (len(payload) + 2).to_bytes(2, "big")
+            + payload + data[2:])
+
+
+# the orientation that undoes each one (6 and 8 turn opposite ways)
+UNDO = {1: 1, 2: 2, 3: 3, 4: 4, 5: 5, 6: 8, 7: 7, 8: 6}
 
 
 def opencv_rgb(data):
@@ -96,6 +115,59 @@ def test_card_decode_against_the_goldens():
         assert diff.mean() <= 1.5 and (diff > 8).mean() <= 0.01, name
     with pytest.raises(ValueError, match="JPEG 1"):
         jpeg.decode([datas[0], datas[1][:200]], "cuda")
+
+
+@pytest.mark.cuda
+def test_decode_behind_a_busy_stream_equals_a_serialized_decode():
+    """nvJPEG's host stage of a decode rewrites its state's buffers while
+    the card's stage of the state's last decode may still wait in stream
+    order (behind the eval loop's forward, say); each decode must wait for
+    the last one, or the images mix.  Decodes queued behind 10 ms of work
+    equal decodes made one at a time on an idle card, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    datas = [fixture(n) for n in NAMES]
+    want = []
+    for data in datas:
+        want.append(jpeg.decode([data], "cuda")[0])
+        torch.cuda.synchronize()
+    for _ in range(5):
+        torch.cuda._sleep(20_000_000)
+        got = jpeg.decode(datas, "cuda")
+        torch.cuda.synchronize()
+        for name, a, b in zip(NAMES, got, want):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [b"II", b"MM"])
+def test_card_decode_applies_the_exif_orientation(order):
+    """Each fixture with an EXIF orientation of 1-8 decodes on the card to
+    the displayed shape (``image_size``); turned back, its eval crop holds
+    the gate against the JAX golden of the plain stream.  OpenCV applies
+    the orientation by the same flips and transposes, exactly
+    (``tests/test_torch_records.py``), so this is the card's decode held
+    against OpenCV's of the oriented stream."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for i, name in enumerate(NAMES):
+        data = fixture(name)
+        h, w = jpeg.image_size(data)
+        g = pp.draw_geometry(h, w, out_size=OUT, is_training=False,
+                             resize_min=RMIN)
+        golden = np.cumsum(GOLDEN["eval_image_dx"][i], axis=1,
+                           dtype=np.uint8)
+        for orientation in range(1, 9):
+            oriented = with_exif_orientation(data, orientation, order)
+            img = jpeg.decode([oriented], "cuda")[0]
+            assert img.shape == jpeg.image_size(oriented) + (3,)
+            assert img.shape[:2] == ((w, h) if orientation >= 5 else (h, w))
+            crop = pp.apply_geometry(jpeg.orient(img, UNDO[orientation]), g,
+                                     out_size=OUT, keep_uint8=True)
+            diff = np.abs(crop.cpu().numpy().astype(int)
+                          - golden.astype(int))
+            assert diff.mean() <= 1.5 and (diff > 8).mean() <= 0.01, \
+                (name, orientation)
 
 
 @pytest.mark.cuda

@@ -3,8 +3,9 @@ byte for byte, the native ``.idx`` index byte for byte (each package reads
 the other's), the hand-written ``tf.train.Example`` decoder against the
 JAX ``grain_pipeline.parse_example`` on TF-written records, TF's parser on
 the port's hand-written encoder, ``write_synthetic_dataset`` drawing as
-the JAX one draws, the JPEG frame-header reader against OpenCV, and the
-hand-written TensorBoard event files through TensorBoard's reader.
+the JAX one draws, the JPEG frame-header reader and the EXIF orientation
+against OpenCV, and the hand-written TensorBoard event files through
+TensorBoard's reader.
 
 All exact: bytes, integers and float32 values are compared for equality.
 """
@@ -22,12 +23,16 @@ from tensorboard.backend.event_processing.event_accumulator import (
 
 from attentionalpoolingaction_torch.data import jpeg
 from attentionalpoolingaction_torch.data import native_io
+from attentionalpoolingaction_torch.data import preprocessing as pp
 from attentionalpoolingaction_torch.data import records
 from attentionalpoolingaction_torch.data.datasets import get_dataset
 from attentionalpoolingaction_torch.utils import metrics_writer
 from attentionalpoolingaction_tpu.data import grain_pipeline as jax_gp
 from attentionalpoolingaction_tpu.data import native_io as jax_native_io
+from attentionalpoolingaction_tpu.data import preprocessing_np as jax_ppnp
 from attentionalpoolingaction_tpu.data import records as jax_records
+
+from test_torch_jpeg_kernel import with_exif_orientation
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures_torch")
 
@@ -225,42 +230,36 @@ def test_jpeg_image_size_reads_the_frame_header():
             jpeg.image_size(bad)
 
 
-def with_exif_orientation(data, orientation, order):
-    """``data`` with an EXIF APP1 segment right after SOI whose IFD0 holds
-    the orientation tag alone, in byte order ``order`` (b"II" or b"MM")."""
-    o = "little" if order == b"II" else "big"
-    entry = ((0x0112).to_bytes(2, o) + (3).to_bytes(2, o)      # SHORT
-             + (1).to_bytes(4, o) + orientation.to_bytes(2, o) + b"\0\0")
-    tiff = (order + (42).to_bytes(2, o) + (8).to_bytes(4, o)
-            + (1).to_bytes(2, o) + entry + (0).to_bytes(4, o))
-    payload = b"Exif\0\0" + tiff
-    return (data[:2] + b"\xff\xe1" + (len(payload) + 2).to_bytes(2, "big")
-            + payload + data[2:])
-
-
 @pytest.mark.parametrize("order", [b"II", b"MM"])
 def test_exif_orientation_is_refused(order):
-    """OpenCV applies a stream's EXIF orientation and nvJPEG does not, so
-    both decode paths refuse any orientation but 1 (the normal one), which
-    reads as if there were no tag."""
+    """No EXIF orientation is refused: for 1-8, in both byte orders,
+    ``image_size`` is the shape OpenCV decodes, ``decode(..., "cpu")``
+    equals the JAX package's ``decode_jpeg`` bit for bit, ``orient``
+    applied to the plain decode equals it too (what the card does after
+    nvJPEG), and the geometry drawn from ``image_size`` equals the JAX
+    pipeline's."""
     img = np.random.default_rng(0).integers(0, 256, (24, 40, 3), np.uint8)
     data = cv2.imencode(".jpg", img)[1].tobytes()
-    plain = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
-    normal = with_exif_orientation(data, 1, order)
-    assert jpeg.image_size(normal) == (24, 40)
-    np.testing.assert_array_equal(jpeg.decode([normal], "cpu")[0].numpy(),
-                                  plain[..., ::-1])
-    for orientation in (2, 3, 6):   # mirror, 180 degrees, 90 degrees
+    plain = jpeg.decode([data], "cpu")[0]
+    for orientation in range(1, 9):
         oriented = with_exif_orientation(data, orientation, order)
-        turned = cv2.imdecode(np.frombuffer(oriented, np.uint8),
-                              cv2.IMREAD_COLOR)
-        assert turned.shape != plain.shape or \
-            not np.array_equal(turned, plain)       # OpenCV applies it
-        with pytest.raises(ValueError, match=f"EXIF orientation "
-                                             f"{orientation}"):
-            jpeg.image_size(oriented)
-        with pytest.raises(ValueError, match="JPEG 1: .*EXIF orientation"):
-            jpeg.decode([normal, oriented], "cpu")
+        want = jax_ppnp.decode_jpeg(oriented)
+        assert jpeg.image_size(oriented) == want.shape[:2]
+        assert want.shape[:2] == ((40, 24) if orientation >= 5
+                                  else (24, 40))
+        np.testing.assert_array_equal(
+            jpeg.decode([data, oriented], "cpu")[1].numpy(), want)
+        np.testing.assert_array_equal(
+            jpeg.orient(plain, orientation).numpy(), want)
+        for seed in range(3):
+            _, transform = jax_ppnp.preprocess_image_np(
+                oriented, out_size=16, is_training=True, resize_min=20,
+                resize_max=30, rng=np.random.default_rng(seed))
+            g = pp.draw_geometry(*jpeg.image_size(oriented), out_size=16,
+                                 is_training=True, resize_min=20,
+                                 resize_max=30,
+                                 rng=np.random.default_rng(seed))
+            np.testing.assert_array_equal(g.transform(), transform)
 
 
 def test_event_file_reads_back_through_tensorboard(tmp_path):
