@@ -32,7 +32,9 @@
 // Huffman decoding on the host thread, the IDCT on the card), into
 // buffers the caller allocated (torch tensors), on the caller's stream.
 // One handle and one decode state per host thread, made at the thread's
-// first call and kept for the life of the process.  The host stage of a
+// first call and kept for the life of the process: a caller that decodes
+// on many short-lived threads should decode on a bounded pool instead
+// (serve_cli does); apj_decoder_count says how many were made.  The host stage of a
 // decode writes the state's buffers, which the card's stage of the last
 // decode may not have read yet: its copy waits in stream order behind
 // whatever the stream holds (a forward of the eval loop, say), and
@@ -47,6 +49,7 @@
 #include <cuda_runtime.h>
 #include <nvjpeg.h>
 
+#include <atomic>
 #include <cstddef>
 #include <cstdint>
 
@@ -64,6 +67,8 @@ struct Decoder {
 };
 
 thread_local Decoder tls_decoder;
+// nvJPEG handles made in this process, one a thread that decoded
+std::atomic<int> decoders_made{0};
 
 int GetDecoder(Decoder** out) {
   Decoder& d = tls_decoder;
@@ -73,6 +78,7 @@ int GetDecoder(Decoder** out) {
       d.handle = nullptr;
       return static_cast<int>(st);
     }
+    decoders_made.fetch_add(1);
   }
   if (d.state == nullptr) {
     nvjpegStatus_t st = nvjpegJpegStateCreate(d.handle, &d.state);
@@ -218,6 +224,10 @@ int apj_ycc_to_rgb(const unsigned char* y, int y_pitch,
       y, y_pitch, cb, cr, c_pitch, cw, ch, hf, vf, w, h, out);
   return -static_cast<int>(cudaGetLastError());
 }
+
+// The number of nvJPEG decoders (handle and state, one a host thread) made
+// in this process; none is freed before the process exits.
+int apj_decoder_count() { return decoders_made.load(); }
 
 const char* apj_error_string(int code) {
   if (code < 0) return cudaGetErrorString(static_cast<cudaError_t>(-code));

@@ -7,7 +7,9 @@ tensor a JPEG stream, on ``device``:
 
   * on a CUDA device nvJPEG decodes each image into planar Y, Cb and Cr
     tensors that torch's allocator owns, on the current stream, with one
-    nvJPEG handle and state per host thread; then :func:`ycc_to_rgb`, the
+    nvJPEG handle and state per host thread, kept for the life of the
+    process (so decode on a bounded set of threads;
+    :func:`decoder_count`); then :func:`ycc_to_rgb`, the
     kernel, upsamples the chroma and converts to RGB as libjpeg does
     (nvJPEG's own RGB output replicates the chroma of 4:2:0 and 4:2:2
     streams, 1-2% of an MPII image's pixels then lie more than 8 levels
@@ -41,8 +43,8 @@ import torch
 from attentionalpoolingaction_torch.ops import _build
 
 __all__ = ["LIBRARY", "decode", "decode_count", "decode_planes",
-           "image_size", "launch_counts", "orient", "reset_counts",
-           "ycc_to_rgb", "ycc_to_rgb_plain"]
+           "decoder_count", "image_size", "launch_counts", "orient",
+           "reset_counts", "ycc_to_rgb", "ycc_to_rgb_plain"]
 
 # nvjpegChromaSubsampling_t
 _CSS_NAMES = {0: "4:4:4", 1: "4:2:2", 2: "4:2:0", 3: "4:4:0", 4: "4:1:1",
@@ -67,6 +69,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.apj_ycc_to_rgb.restype = i
     lib.apj_error_string.argtypes = [i]
     lib.apj_error_string.restype = ctypes.c_char_p
+    lib.apj_decoder_count.argtypes = []
+    lib.apj_decoder_count.restype = i
     return lib
 
 
@@ -84,6 +88,12 @@ decode_count = 0
 """Images decoded on a CUDA device (by nvJPEG) since the last reset."""
 launch_counts = {"ycc_to_rgb": 0}
 """Launches of the colour kernel since the last reset."""
+
+
+def decoder_count() -> int:
+    """nvJPEG decoders made in this process: one for each host thread that
+    decoded on a card, each kept until the process exits."""
+    return LIBRARY.load().apj_decoder_count()
 
 
 def reset_counts() -> None:

@@ -16,10 +16,11 @@ device.
 
 Clip eval (``clip_frames`` > 1) reads ``eval_clips`` x ``eval_multicrop``
 clip rows a video, which the per-video averaging of :func:`compute_metrics`
-combines.
+combines.  ``eval_int8`` evaluates the BN-folded int8 forward
+(:func:`make_int8_eval_step`, ``models/inference.py``).
 
-Not ported yet, and raising ``NotImplementedError``: ``eval_int8``
-(``make_int8_eval_step``) and multi-process gathers.
+Not ported yet, and raising ``NotImplementedError``: multi-process
+gathers.
 """
 
 from __future__ import annotations
@@ -31,10 +32,12 @@ import numpy as np
 import torch
 
 from attentionalpoolingaction_torch import config as config_lib
+from attentionalpoolingaction_torch import convert
 from attentionalpoolingaction_torch.convert import load_flax_variables
 from attentionalpoolingaction_torch.data import grain_pipeline
 from attentionalpoolingaction_torch.data.datasets import get_dataset
 from attentionalpoolingaction_torch.device import resolve_device
+from attentionalpoolingaction_torch.models import inference as inf
 from attentionalpoolingaction_torch.ops import metrics as metrics_lib
 from attentionalpoolingaction_torch.train import (
     TrainState,
@@ -80,9 +83,44 @@ def make_multicrop_eval_step(model: torch.nn.Module):
 
 
 def make_int8_eval_step(cfg: config_lib.TrainConfig, mesh=None,
-                        multicrop: bool = False):
-    raise NotImplementedError(
-        "int8 evaluation (BN folding, int8 weights) is not ported yet")
+                        multicrop: bool = False, *, device=None):
+    """``step_fn(params, batch_stats, images) -> logits`` over the
+    quantized serving path (``models/inference.py``) on ``device``
+    (default ``cuda``): BN-folded backbone, per-channel int8 weights,
+    per-example activation scales, activations in bfloat16 with
+    ``bf16_backbone``, else float32.  ``params`` and ``batch_stats`` are
+    Flax-layout arrays; they are folded and quantized again only when
+    ``params`` is another object than the last call's (a strong
+    reference, so a recycled ``id()`` cannot serve stale weights).  With
+    ``multicrop`` the images are (B, crops, H, W, 3) and the logits are
+    averaged over the crops."""
+    if mesh is not None:
+        raise NotImplementedError("a sharded int8 eval step is not ported "
+                                  "yet: the port evaluates on one device")
+    device = resolve_device(device)
+    pooling = "avg" if cfg.pooling == "avg" else "attention"
+    dtype = torch.bfloat16 if cfg.bf16_backbone else torch.float32
+    cache: dict = {}
+
+    @torch.inference_mode()
+    def step_fn(params, batch_stats, images):
+        if cache.get("params") is not params:       # a new checkpoint
+            folded = inf.fold_backbone(
+                {"params": params, "batch_stats": batch_stats},
+                cfg.backbone, device=device)
+            cache.update(params=params, q=inf.quantize_folded(folded),
+                         head=inf.head_weights(params, device)["head"])
+        if multicrop:
+            b, c = images.shape[:2]
+            images = images.reshape((b * c,) + tuple(images.shape[2:]))
+        logits = inf.folded_forward(
+            cache["q"], cache["head"], normalize_images(images),
+            backbone=cfg.backbone, pooling=pooling, dtype=dtype)["logits"]
+        if multicrop:
+            logits = logits.reshape(b, c, -1).mean(dim=1)
+        return logits
+
+    return step_fn
 
 
 def make_eval_input(cfg: config_lib.TrainConfig, spec,
@@ -130,8 +168,6 @@ def _multicrop(cfg: config_lib.TrainConfig) -> bool:
 
 
 def _check_ported(cfg: config_lib.TrainConfig) -> None:
-    if cfg.eval_int8:
-        make_int8_eval_step(cfg)
     if torch.distributed.is_available() and \
             torch.distributed.is_initialized() and \
             torch.distributed.get_world_size() > 1:
@@ -140,11 +176,11 @@ def _check_ported(cfg: config_lib.TrainConfig) -> None:
             "not ported yet")
 
 
-def _load_weights(model: torch.nn.Module, state, use_ema: bool) -> None:
-    """Copy the weights of ``state`` into ``model``: a ``TrainState``
-    (its model's state dict, the parameters replaced by its EMA with
-    ``use_ema``) or Flax-layout arrays with ``params``, ``batch_stats``
-    and ``ema_params`` (``checkpoint.restore_for_eval``)."""
+def _weights(state, use_ema: bool):
+    """The weights of ``state`` to evaluate: a ``TrainState``'s state dict
+    (its parameters replaced by its EMA with ``use_ema``), or the
+    Flax-layout ``(params or ema_params, batch_stats)`` arrays of
+    ``checkpoint.restore_for_eval``."""
     ema = getattr(state, "ema_params", None)
     if use_ema and ema is None:
         raise ValueError(
@@ -154,10 +190,8 @@ def _load_weights(model: torch.nn.Module, state, use_ema: bool) -> None:
         sd = state.model.state_dict()
         if use_ema:
             sd.update(ema)
-        model.load_state_dict(sd)
-    else:
-        load_flax_variables(model, ema if use_ema else state.params,
-                            state.batch_stats)
+        return sd
+    return (ema if use_ema else state.params), state.batch_stats
 
 
 def _start_fetch(logits: torch.Tensor):
@@ -300,12 +334,18 @@ class Evaluator:
     """Reusable evaluator: builds the model and its eval step once, on
     ``device`` (default ``cuda``); each call loads the weights of the state
     it is given into that model and evaluates a fresh pass of its
-    iterator."""
+    iterator.  With ``eval_int8`` there is no model: each call folds and
+    quantizes the state's weights for :func:`make_int8_eval_step`."""
 
     def __init__(self, cfg: config_lib.TrainConfig, device=None):
         _check_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        if cfg.eval_int8:
+            self.model = self.step_fn = None
+            self.int8_step = make_int8_eval_step(
+                cfg, multicrop=_multicrop(cfg), device=self.device)
+            return
         self.model = build_model(cfg, device=self.device)
         self.step_fn = (make_multicrop_eval_step(self.model)
                         if _multicrop(cfg) else make_eval_step(self.model))
@@ -318,8 +358,20 @@ class Evaluator:
             eval_iter = make_eval_input(self.cfg,
                                         get_dataset(self.cfg.dataset),
                                         device=self.device)
-        _load_weights(self.model, state, self.cfg.eval_ema)
-        return eval_logits(self.step_fn, eval_iter, device=self.device,
+        weights = _weights(state, self.cfg.eval_ema)
+        if self.cfg.eval_int8:
+            params, batch_stats = (weights if isinstance(weights, tuple)
+                                   else convert.state_dict_to_flax(weights))
+
+            def step_fn(images):
+                return self.int8_step(params, batch_stats, images)
+        elif isinstance(weights, tuple):
+            load_flax_variables(self.model, *weights)
+            step_fn = self.step_fn
+        else:
+            self.model.load_state_dict(weights)
+            step_fn = self.step_fn
+        return eval_logits(step_fn, eval_iter, device=self.device,
                            max_batches=max_batches)
 
     def __call__(self, state, *, eval_iter=None, max_batches=None,

@@ -1,5 +1,5 @@
 """Online serving: bucketed-batch predictor + dynamic request batching.
-Port of the JAX package's ``serving.py`` (the float, single-device path).
+Port of the JAX package's ``serving.py`` on one device.
 
   * **Shape bucketing.** Requests are padded up to the next batch bucket
     (default 1/8/32/128); ``warmup()`` runs every bucket once so that cuDNN
@@ -7,12 +7,21 @@ Port of the JAX package's ``serving.py`` (the float, single-device path).
     request.
   * **Dynamic batching.** ``DynamicBatcher`` coalesces concurrent requests
     into one device dispatch (bounded wait).
+  * **Precision.** The float model (the ActionModel in eval mode), or with
+    ``int8`` the BN-folded post-training-quantized forward
+    (``models/inference.py``) in bfloat16 activations.
+  * **Bytes in.** :meth:`BucketedPredictor.preprocess` decodes a request's
+    bytes on the predictor's device (a JPEG by nvJPEG on a card, OpenCV on
+    the CPU; a PNG on the host by ``data/png.py``, then uploaded) and
+    crops it at the eval geometry of ``data/preprocessing.py``; the uint8
+    crop stays on the device up to the forward.  Video clips come as
+    ordered frames or as one container (OpenCV, where it is installed).
 
 The ``Predictor`` is built from Flax-layout (params, batch_stats) arrays
 through the weight bridge (``convert.py``); ``load_predictor`` builds one
 from a checkpoint of the port (the latest step, a step, or the keep-best
 slot), and ``CheckpointFollower`` hot-swaps newer steps into it.  Not
-ported yet: JPEG and video decode, int8, data-parallel serving, export.
+ported yet: data-parallel serving and the exported artifact.
 """
 
 from __future__ import annotations
@@ -31,8 +40,12 @@ import torch
 from attentionalpoolingaction_torch import checkpoint as ckpt_lib
 from attentionalpoolingaction_torch import config as config_lib
 from attentionalpoolingaction_torch.convert import load_flax_variables
+from attentionalpoolingaction_torch.data import jpeg, png
+from attentionalpoolingaction_torch.data import preprocessing as pp
 from attentionalpoolingaction_torch.data.datasets import get_dataset
+from attentionalpoolingaction_torch.data.grain_pipeline import _segment_picks
 from attentionalpoolingaction_torch.device import resolve_device
+from attentionalpoolingaction_torch.models import inference as inf
 from attentionalpoolingaction_torch.train import build_model, normalize_images
 
 DEFAULT_BUCKETS = (1, 8, 32, 128)
@@ -44,6 +57,86 @@ class Overloaded(RuntimeError):
     """The DynamicBatcher's bounded queue is full: the server is taking
     requests faster than the device drains them.  Raised synchronously by
     submit() so the HTTP layer can answer 429 + Retry-After at once."""
+
+
+def decode_image(data: bytes, device) -> torch.Tensor:
+    """RGB uint8 (H, W, 3) of a request's image bytes on ``device``, told
+    apart by their magic bytes: a JPEG by ``data/jpeg.py`` (nvJPEG on a
+    card, OpenCV on the CPU), a PNG by ``data/png.py`` on the host, then
+    uploaded.  Anything else raises ``ValueError``."""
+    data = bytes(data)
+    if png.is_png(data):
+        return torch.from_numpy(png.decode(data)).to(device)
+    if data[:2] == b"\xff\xd8":
+        return jpeg.decode([data], device)[0]
+    raise ValueError("not a JPEG or PNG stream")
+
+
+def crop_decoded(decoded, cfg: config_lib.TrainConfig, device, *,
+                 keep_uint8: bool = True) -> torch.Tensor:
+    """The eval crop of a decoded RGB uint8 (H, W, 3) image (a tensor, or
+    an array that is uploaded to ``device``): the short side to
+    ``resize_min``, the central ``image_size`` square, uint8 with
+    ``keep_uint8``, else float32 minus the VGG means."""
+    if not isinstance(decoded, torch.Tensor):
+        decoded = torch.from_numpy(np.ascontiguousarray(decoded))
+    decoded = decoded.to(device)
+    h, w = decoded.shape[:2]
+    g = pp.draw_geometry(h, w, out_size=cfg.image_size, is_training=False,
+                         resize_min=cfg.resize_min_resolved)
+    return pp.apply_geometry(decoded, g, out_size=cfg.image_size,
+                             keep_uint8=keep_uint8)
+
+
+def decode_video_frames(data: bytes, clip_frames: int):
+    """The ``clip_frames`` TSN segment-centre frames of an encoded video
+    container as RGB uint8 arrays, and the container's frame count, read
+    by OpenCV in one pass that grabs past the frames it does not pick (the
+    JAX package's function).  Raises ``ValueError`` where OpenCV is not
+    installed (the card's machine has none), or the bytes are no video."""
+    import os
+    import tempfile
+
+    try:
+        import cv2
+    except ImportError:
+        raise ValueError("decoding a video container needs OpenCV (cv2), "
+                         "which is not installed; send the ordered frames "
+                         "as JSON {\"frames\": [...]} instead") from None
+
+    with tempfile.NamedTemporaryFile(suffix=".video", delete=False) as f:
+        f.write(data)
+        path = f.name
+    try:
+        cap = cv2.VideoCapture(path)
+        try:
+            if not cap.isOpened():
+                raise ValueError("not a decodable video container")
+            n = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+            if n <= 0:  # unreliable metadata: count by grabbing
+                while cap.grab():
+                    n += 1
+                cap.release()
+                cap = cv2.VideoCapture(path)
+            if n <= 0:
+                raise ValueError("video has no frames")
+            picks = _segment_picks(n, clip_frames)
+            want = set(picks)
+            by_idx: dict[int, np.ndarray] = {}
+            for idx in range(max(picks) + 1):
+                if idx in want:
+                    ok, fr = cap.read()
+                    if not ok:
+                        raise ValueError(
+                            f"decode failed at frame {idx}/{n}")
+                    by_idx[idx] = cv2.cvtColor(fr, cv2.COLOR_BGR2RGB)
+                elif not cap.grab():
+                    raise ValueError(f"decode failed at frame {idx}/{n}")
+            return [by_idx[p] for p in picks], n
+        finally:
+            cap.release()
+    finally:
+        os.unlink(path)
 
 
 # Prometheus-style cumulative histogram bounds for request latency;
@@ -147,14 +240,17 @@ class ServingStats:
 
 
 class BucketedPredictor:
-    """Shape-bucketed padded batch inference over a forward fn.
+    """Shape-bucketed padded batch inference over a forward fn, and the
+    byte path in front of it.
 
-    Subclass ``__init__`` must set ``cfg``, ``spec``, ``stats``,
-    ``buckets``, ``_weights`` and ``_fwd(weights, images) -> logits``
-    (a numpy (B, C) float32 array)."""
+    Subclass ``__init__`` must set ``cfg``, ``spec``, ``int8``, ``device``,
+    ``stats``, ``buckets``, ``_weights`` and ``_fwd(weights, images) ->
+    logits`` (a numpy (B, C) float32 array of (B, H, W, 3) images, numpy
+    or tensors, and where ``supports_clips`` of (1, T, H, W, 3) clips)."""
 
     cfg: config_lib.TrainConfig
     buckets: tuple
+    supports_clips = False
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -163,17 +259,23 @@ class BucketedPredictor:
         return self.buckets[-1]
 
     def warmup(self, dtypes: Sequence = (np.uint8,)):
-        """Run every (bucket, dtype) once so that no request pays for
-        cuDNN's algorithm choice or the kernels' build."""
+        """Run every (bucket, dtype) once, and a clip of a clip config,
+        so that no request pays for cuDNN's algorithm choice or the
+        kernels' build."""
         size = self.cfg.image_size
         for dt in dtypes:
             for b in self.buckets:
                 self._fwd(self._weights, np.zeros((b, size, size, 3), dt))
+            if self.supports_clips and self.cfg.clip_frames > 1:
+                self._fwd(self._weights, np.zeros(
+                    (1, self.clip_length, size, size, 3), dt))
 
-    def predict_arrays(self, images: np.ndarray) -> np.ndarray:
+    def predict_arrays(self, images) -> np.ndarray:
         """(N, H, W, 3) images -> (N, C) probabilities.  uint8 = raw RGB
-        (normalized on device); float32 = already mean-subtracted.  N may
-        exceed the largest bucket; it is chunked."""
+        (normalized on device); float32 = already mean-subtracted.  A
+        numpy array or a tensor (a stack of :meth:`preprocess` crops, on
+        the device: padded there).  N may exceed the largest bucket; it is
+        chunked."""
         out = []
         cap = self.buckets[-1]
         # snapshot once: one request sees ONE set of weights, even if a
@@ -182,12 +284,14 @@ class BucketedPredictor:
         for lo in range(0, len(images), cap):
             chunk = images[lo:lo + cap]
             b = self._bucket(len(chunk))
-            if len(chunk) < b:
-                pad = np.zeros((b - len(chunk),) + chunk.shape[1:],
-                               chunk.dtype)
-                padded = np.concatenate([chunk, pad])
-            else:
+            if len(chunk) == b:
                 padded = chunk
+            elif isinstance(chunk, torch.Tensor):
+                padded = torch.cat([chunk, chunk.new_zeros(
+                    (b - len(chunk),) + tuple(chunk.shape[1:]))])
+            else:
+                padded = np.concatenate([chunk, np.zeros(
+                    (b - len(chunk),) + chunk.shape[1:], chunk.dtype)])
             t0 = time.monotonic()
             logits = self._fwd(weights, padded)[:len(chunk)]
             self.stats.observe_dispatch(len(chunk), len(padded),
@@ -201,17 +305,101 @@ class BucketedPredictor:
         e = np.exp(logits - logits.max(-1, keepdims=True))
         return e / e.sum(-1, keepdims=True)
 
-    def predict_preprocessed(self, images: Sequence[np.ndarray],
-                             topk: int = 5):
-        """Already-preprocessed images -> per-item {"topk": [...]}: the
-        device half of the JAX package's predict_bytes."""
-        probs = self.predict_arrays(np.stack(images))
-        out = []
-        for p in probs:
-            top = np.argsort(-p)[:topk]
-            out.append({"topk": [{"class": int(c), "prob": float(p[c])}
-                                 for c in top]})
-        return out
+    def _topk(self, probs: np.ndarray, topk: int) -> list:
+        top = np.argsort(-probs)[:topk]
+        return [{"class": int(c), "prob": float(probs[c])} for c in top]
+
+    # -- the byte path --------------------------------------------------
+    def preprocess(self, image_bytes: bytes) -> torch.Tensor:
+        """A request's JPEG or PNG bytes -> the uint8 (S, S, 3) eval crop
+        on the predictor's device (:func:`decode_image`,
+        :func:`crop_decoded`)."""
+        return self.preprocess_decoded(decode_image(image_bytes,
+                                                    self.device))
+
+    def preprocess_decoded(self, decoded) -> torch.Tensor:
+        """The geometry half of :meth:`preprocess`, for an already decoded
+        RGB uint8 (H, W, 3) image or video frame."""
+        return crop_decoded(decoded, self.cfg, self.device)
+
+    def predict_preprocessed(self, images: Sequence, topk: int = 5):
+        """Already-preprocessed images (crops on the device, or arrays) ->
+        per-item {"topk": [...]}: the device half of predict_bytes."""
+        if isinstance(images[0], torch.Tensor):
+            batch = torch.stack(list(images))
+        else:
+            batch = np.stack(images)
+        return [{"topk": self._topk(p, topk)}
+                for p in self.predict_arrays(batch)]
+
+    def predict_bytes(self, blobs: Sequence[bytes], topk: int = 5):
+        """JPEG/PNG bytes -> per-item {"topk": [...]} or {"error": ...}.
+        Each blob decodes on its own, so a corrupt image gives an error in
+        its own slot and the others are predicted as usual."""
+        images, slots = [], []
+        results: list = [None] * len(blobs)
+        for i, b in enumerate(blobs):
+            try:
+                images.append(self.preprocess(b))
+                slots.append(i)
+            except Exception as exc:  # undecodable/invalid image bytes
+                results[i] = {"error": f"bad image: {exc}"}
+        if images:
+            for i, r in zip(slots, self.predict_preprocessed(images, topk)):
+                results[i] = r
+        return results
+
+    # -- video clips ----------------------------------------------------
+    @property
+    def clip_length(self) -> int:
+        """The clip length T videos are served at: the config's
+        ``clip_frames``, or 8 for an image config."""
+        return self.cfg.clip_frames if self.cfg.clip_frames > 1 else 8
+
+    def predict_clip_bytes(self, frame_blobs: Sequence[bytes],
+                           topk: int = 5):
+        """One video as its ordered encoded frames -> one clip-pooled
+        prediction: the frames are TSN-subsampled (or repeated) to
+        :attr:`clip_length`, each cropped as :meth:`preprocess` does, and
+        run as one (1, T, S, S, 3) clip.  {"topk": [...], "clip_frames",
+        "frames_received"} or {"error": ...}."""
+        if not self.supports_clips:
+            return {"error": "this predictor has no clip forward"}
+        if not frame_blobs:
+            return {"error": "bad video: no frames"}
+        picks = _segment_picks(len(frame_blobs), self.clip_length)
+        try:
+            frames = [self.preprocess(frame_blobs[p]) for p in picks]
+        except Exception as exc:
+            return {"error": f"bad video frame: {exc}"}
+        return self._predict_clip(frames, topk,
+                                  frames_received=len(frame_blobs))
+
+    def predict_video_bytes(self, video_bytes: bytes, topk: int = 5):
+        """One encoded video file -> one clip-pooled prediction: the TSN
+        picks decoded from the container (:func:`decode_video_frames`,
+        OpenCV) and cropped as :meth:`predict_clip_bytes` crops frames.
+        Where OpenCV is missing the answer is {"error": "bad video:
+        ..."}."""
+        if not self.supports_clips:
+            return {"error": "this predictor has no clip forward"}
+        try:
+            frames, n = decode_video_frames(video_bytes, self.clip_length)
+            frames = [self.preprocess_decoded(fr) for fr in frames]
+        except Exception as exc:
+            return {"error": f"bad video: {exc}"}
+        return self._predict_clip(frames, topk, frames_received=n)
+
+    def _predict_clip(self, frames, topk: int, frames_received: int):
+        """The clip entry points' tail: ``frames`` are the clip_length
+        uint8 crops, in temporal order."""
+        clip = torch.stack(frames)[None]          # (1, T, S, S, 3) uint8
+        t0 = time.monotonic()
+        logits = self._fwd(self._weights, clip)
+        self.stats.observe_dispatch(1, 1, time.monotonic() - t0)
+        return {"topk": self._topk(self._probs(logits)[0], topk),
+                "clip_frames": int(self.clip_length),
+                "frames_received": int(frames_received)}
 
 
 class Predictor(BucketedPredictor):
@@ -219,34 +407,79 @@ class Predictor(BucketedPredictor):
     (default ``cuda``; raises without a card unless ``device="cpu"``).
 
     Input contract: uint8 images (raw 0-255 RGB, mean-subtracted on the
-    device) or float32 images already mean-subtracted."""
+    device) or float32 images already mean-subtracted.  With ``int8`` the
+    forward is the BN-folded int8 one in bfloat16 activations, with static
+    activation scales calibrated on ``calibration_images`` (mean-subtracted
+    float (N, S, S, 3), an array or a tensor) or, without them, per
+    example.  Both serve (1, T, S, S, 3) clips too."""
+
+    supports_clips = True
 
     def __init__(self, cfg: config_lib.TrainConfig, params, batch_stats, *,
-                 buckets: Sequence[int] = DEFAULT_BUCKETS,
-                 stats: ServingStats | None = None, device=None):
+                 int8: bool = False, buckets: Sequence[int] = DEFAULT_BUCKETS,
+                 calibration_images=None, stats: ServingStats | None = None,
+                 data_parallel: bool = False, device=None):
+        if data_parallel:
+            raise NotImplementedError(
+                "data-parallel serving is not ported yet (ROADMAP.md, "
+                "Queue 1: parallel); serve on one device")
         self.cfg = cfg
         self.spec = get_dataset(cfg.dataset)
+        self.int8 = int8
         self.device = resolve_device(device)
         self.stats = stats or ServingStats()
         self.buckets = tuple(sorted(set(buckets)))
+        self._pooling = "avg" if cfg.pooling == "avg" else "attention"
+        self._calib = (None if calibration_images is None else
+                       torch.as_tensor(calibration_images,
+                                       dtype=torch.float32,
+                                       device=self.device))
         self._weights = self._make_weights(params, batch_stats)
 
     def _make_weights(self, params, batch_stats):
-        """A servable model holding the given weights.  The weights of one
-        model never change: reload() builds a new one and swaps it in."""
-        model = build_model(self.cfg, device=self.device)
-        return load_flax_variables(model, params, batch_stats)
+        """Servable weights, which never change once made (reload() makes
+        new ones and swaps them in): a model holding the given weights, or
+        on the int8 path ``(quantized backbone, head, activation scales or
+        None)``, calibrated again on the retained calibration images."""
+        if not self.int8:
+            model = build_model(self.cfg, device=self.device)
+            return load_flax_variables(model, params, batch_stats)
+        folded = inf.fold_backbone(
+            {"params": params, "batch_stats": batch_stats},
+            self.cfg.backbone, device=self.device)
+        head = inf.head_weights(params, self.device)["head"]
+        act_scales = None
+        if self._calib is not None:
+            act_scales = {
+                cid: torch.tensor(np.float32(v), device=self.device)
+                for cid, v in inf.calibrate_act_scales(
+                    folded, head, [self._calib], backbone=self.cfg.backbone,
+                    pooling=self._pooling).items()}
+        return inf.quantize_folded(folded), head, act_scales
 
     @torch.inference_mode()
-    def _fwd(self, model, images: np.ndarray) -> np.ndarray:
-        x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
-        logits = model(normalize_images(x))["logits"]
-        return logits.to(torch.float32).cpu().numpy()
+    def logits(self, weights, images) -> torch.Tensor:
+        """float32 logits on the device of (B, S, S, 3) images or (B, T,
+        S, S, 3) clips (numpy or tensors)."""
+        if not isinstance(images, torch.Tensor):
+            images = torch.from_numpy(np.ascontiguousarray(images))
+        x = normalize_images(images.to(self.device))
+        if self.int8:
+            q, head, act_scales = weights
+            return inf.folded_forward(
+                q, head, x, backbone=self.cfg.backbone,
+                pooling=self._pooling, act_scales=act_scales,
+                dtype=torch.bfloat16)["logits"]
+        return weights(x)["logits"].to(torch.float32)
+
+    def _fwd(self, weights, images) -> np.ndarray:
+        return self.logits(weights, images).cpu().numpy()
 
     def reload(self, params, batch_stats, *, step=None):
         """Hot-swap the served weights: in-flight dispatches hold the old
-        model and finish on it; requests after the (atomic) swap see the
-        new one."""
+        ones and finish on them; requests after the (atomic) swap see the
+        new ones.  The int8 path folds, calibrates (on the same retained
+        images) and quantizes the new weights."""
         self._weights = self._make_weights(params, batch_stats)
         self.stats.inc("serving_reloads_total")
         if step is not None:
@@ -457,18 +690,32 @@ def load_predictor(cfg: config_lib.TrainConfig, *, step=None,
     and build a Predictor on ``device`` (default ``cuda``).  ``step`` may
     also be the string ``"best"``: the keep-best slot
     (``checkpoint.BestKeeper``).  ``use_ema`` serves the EMA weights.
-    ``int8``, ``calibration_files`` and ``data_parallel`` are not ported
-    yet and raise."""
-    if int8 or calibration_files:
-        raise NotImplementedError("int8 serving is not ported yet")
+
+    ``int8`` serves the quantized BN-folded path; with
+    ``calibration_files`` (paths of representative JPEG or PNG images,
+    decoded and cropped on the device to mean-subtracted float32) its
+    activation scales are static, else per example.  ``data_parallel`` is
+    not ported yet and raises."""
     if data_parallel:
-        raise NotImplementedError("data-parallel serving is not ported yet")
+        raise NotImplementedError(
+            "data-parallel serving is not ported yet (ROADMAP.md, Queue 1: "
+            "parallel); serve on one device")
+    device = resolve_device(device)
     mgr, step = ckpt_lib.manager_for_step(cfg.workdir, step)
     restored = ckpt_lib.restore_for_eval(mgr, step=step)
     if restored is None:
         raise FileNotFoundError(f"no checkpoint under {mgr.directory}")
     params, batch_stats = deploy_params(restored, use_ema)
-    predictor = Predictor(cfg, params, batch_stats, buckets=buckets,
+    calib = None
+    if int8 and calibration_files:
+        crops = []
+        for path in calibration_files:
+            with open(path, "rb") as f:
+                crops.append(crop_decoded(decode_image(f.read(), device),
+                                          cfg, device, keep_uint8=False))
+        calib = torch.stack(crops)
+    predictor = Predictor(cfg, params, batch_stats, int8=int8,
+                          buckets=buckets, calibration_images=calib,
                           device=device)
     # served-step bookkeeping: CheckpointFollower compares against this
     # to decide when a newer committed step warrants a hot reload

@@ -102,35 +102,68 @@ Phases; any failure raises and the process exits non-zero:
    records and clip eval of the seeded weights at 2 clips x 3 crops a
    video (its first batch card vs CPU, with the same control).  Each
    kernel launches once a step, an eval batch and a serving call.
-8. A ``kernels`` JSON line (``launches`` from phase 3's serving run for
+8. Serving ``mpii_rank1_224`` (ResNet-101, 224 px, float32 with TF32
+   convs) from a checkpoint the port writes from seeded weights.  First
+   the int8 conv (``torch._int_mm`` over an im2col matrix) at every conv
+   shape of ResNet-101, buckets 1 and 32, against the CPU's float64
+   accumulator, bit for bit.  ``serve_cli.make_server`` in-process on
+   127.0.0.1: ``/healthz``, ``/metrics``, ``/predict`` of the 7 JPEG
+   fixtures and a PNG, ``/predict_batch`` with a corrupt item,
+   ``/predict_video`` as 8 frames and as a ``video/mp4`` upload (a 400
+   "bad video" where OpenCV is missing), 12 concurrent keep-alive clients,
+   counted; the logits of the server's crops against those of the JAX
+   pipeline's golden crops within phase 6's bound, the PNG's crop against
+   its JPEG's within the decode gate, 200 short connections after which
+   at most ``DECODE_THREADS`` nvJPEG decoders were made; an overload
+   (the worker held) answering 429 with a Retry-After; the connection
+   cap's 503.  Times: ``/predict`` p50/p90 at 1 and 12 clients over the
+   two 1280x720 fixtures, ``/predict_batch`` images/s.  int8: the folded
+   float forward against the model (TF32 off), int8 against folded float
+   (cosines), int8 on the card against the CPU at batch 2,
+   ``load_predictor(int8=True)`` with and without calibration files
+   (counted), float vs int8 ``predict_arrays`` ms a call at buckets
+   1/8/32 in turns, ``eval_cli`` float and ``--set eval_int8=true`` over
+   48 records (mAP, counted), ``predict_cli`` over the fixtures in a
+   subprocess (float and ``--int8``), and an ``hmdb51_clip8`` int8 clip
+   through ``predict_clip_bytes``.
+9. A ``kernels`` JSON line (``launches`` from phase 3's serving run for
    the pooling kernels and from phase 6's ``train_cli`` for the colour
    kernel; ``train_launches`` from phase 4's ``train``, ``eval_launches``
    from phase 5's evaluation, ``pipeline_train_launches`` and
-   ``pipeline_eval_launches`` from phase 6's CLIs, and one column each
-   for phase 7's runs, each kernel counted over each run), then the last
-   line ``{"ok": true, "device": {...}}``.
+   ``pipeline_eval_launches`` from phase 6's CLIs, one column each for
+   phase 7's runs, and ``http_launches`` (the colour kernel's too),
+   ``int8_serve_launches``, ``int8_eval_launches`` and
+   ``clip8_int8_serve_launches`` from phase 8's, each kernel counted over
+   each run), then the last line ``{"ok": true, "device": {...}}``.
 
 The kernels (``csrc/attn_pool.cu``, ``csrc/jpeg_decode.cu`` with ``nvcc``,
 ``csrc/tfrecord_index.cc`` with the host compiler) build at once, each in
 its own thread, before phase 2.
 
 ``--profile`` adds a torch.profiler breakdown of a call at each bucket, of
-one training step, of a pipelined pass of phase 5's eval loop and, in
-phase 6, of the decode alone and of train steps fed from records.
+one training step, of a pipelined pass of phase 5's eval loop, in phase
+6 of the decode alone and of train steps fed from records, and in phase
+8 of an int8 call at each bucket.
 """
 
 from __future__ import annotations
 
 import argparse
+import base64
 import collections
 import contextlib
+import copy
 import dataclasses
+import functools
 import hashlib
+import http.client
+import importlib.util
 import itertools
 import json
 import os
 import pathlib
 import signal
+import socket
 import struct
 import subprocess
 import sys
@@ -147,12 +180,14 @@ from attentionalpoolingaction_torch import convert
 from attentionalpoolingaction_torch import eval_cli
 from attentionalpoolingaction_torch import evaluate
 from attentionalpoolingaction_torch import precision
+from attentionalpoolingaction_torch import serve_cli
 from attentionalpoolingaction_torch import serving
 from attentionalpoolingaction_torch import train
 from attentionalpoolingaction_torch import train_cli
 from attentionalpoolingaction_torch.data import grain_pipeline, jpeg
 from attentionalpoolingaction_torch.data import native_io, pipeline, records
 from attentionalpoolingaction_torch.data import preprocessing as pp
+from attentionalpoolingaction_torch.models import inference as inf
 from attentionalpoolingaction_torch.ops import _build
 from attentionalpoolingaction_torch.ops import attn_pool_cuda as apc
 from attentionalpoolingaction_torch.tf_checkpoint import _fields
@@ -2323,6 +2358,697 @@ def phase_configs(card):
     return out
 
 
+# -- phase 8 -----------------------------------------------------------------
+
+DECODE_THREADS = 4
+HTTP_CLIENTS = 12
+HTTP_CONNECTIONS = 200
+PNG_FIXTURE = "odd_517x333.png"
+MPII_FIXTURES = ("mpii_a_1280x720.jpg", "mpii_b_1280x720.jpg")
+# The folded float forward against the model's, TF32 off: float32 summed in
+# another order, the CPU tests' bound (tests/test_torch_inference.py).
+FOLD_RTOL = 1e-4
+# int8 against the folded float forward: the JAX package's own cosines.
+INT8_COSINE = {"features": 0.98, "logits": 0.9}
+# int8 on the card against int8 on the CPU from the same weights (folded on
+# the host, so the same quantized weights), relative L2: the CPU tests'
+# bound of the port's int8 forward against JAX's with their own folds (the
+# ulp-level gaps of two float32 paths move activations across the
+# quantizer's rounding boundaries; measured 0.4-2.4% and 0.5-1.6%).  The
+# int32 accumulators and the quantizer's arithmetic are exact or IEEE on
+# both devices, so the features are expected to agree bit for bit; the
+# line prints whether they do.
+INT8_CPU_L2 = {"features": 0.05, "logits": 0.04}
+# HTTP's top-k against predict_cli's: two TF32 forwards at other batch
+# sizes (cuDNN picks other algorithms), probabilities of a class in both
+# within 2% of each other.
+CLI_PROB_RTOL = 2e-2
+
+
+def http_call(conn, method, path, body=None, headers=None):
+    """(status, headers, body) of one request on ``conn``."""
+    conn.request(method, path, body=body, headers=headers or {})
+    resp = conn.getresponse()
+    return resp.status, dict(resp.getheaders()), resp.read()
+
+
+def http_conn(port):
+    return http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+
+
+def b64(data):
+    return base64.b64encode(data).decode()
+
+
+class HttpServer:
+    """``serve_cli.make_server`` on 127.0.0.1 and a free port, served from
+    a thread; stopped (batcher and decode pool too) on exit."""
+
+    def __init__(self, pred, **kw):
+        kw = {"topk": 5, "max_batch": 32, "max_wait_ms": 5.0,
+              "decode_threads": DECODE_THREADS, **kw}
+        self.server = serve_cli.make_server(pred, "127.0.0.1", 0, **kw)
+        self.port = self.server.server_address[1]
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        serve_cli.stop_server(self.server)
+        self.thread.join(timeout=10)
+
+
+class GatedPredictor:
+    """A predictor whose dispatches wait for ``gate``: holds the batcher's
+    worker so that the queue fills (a real overload, made deterministic)."""
+
+    def __init__(self, pred):
+        self._pred = pred
+        self.gate = threading.Event()
+
+    def __getattr__(self, name):
+        return getattr(self._pred, name)
+
+    def predict_preprocessed(self, images, topk=5):
+        self.gate.wait(timeout=60)
+        return self._pred.predict_preprocessed(images, topk)
+
+
+def dispatches(pred):
+    return pred.stats.snapshot().get("serving_device_dispatches_total", 0)
+
+
+def softmax(logits):
+    e = np.exp(logits - logits.max(-1, keepdims=True))
+    return e / e.sum(-1, keepdims=True)
+
+
+def decode_gap(got, want):
+    d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    return {"mean": float(d.mean()), "max": int(d.max()),
+            "far_share": float((d > DECODE_FAR_LEVELS).mean())}
+
+
+def check_decode_gap(what, gap):
+    if not (gap["mean"] <= DECODE_MEAN_LEVELS
+            and gap["far_share"] <= DECODE_FAR_SHARE):
+        raise AssertionError(f"{what} off by {gap} (gate mean <= "
+                             f"{DECODE_MEAN_LEVELS}, > {DECODE_FAR_LEVELS} "
+                             f"on <= {DECODE_FAR_SHARE:.0%})")
+
+
+def http_traffic(port, names, datas, png_data):
+    """The main path's requests: /healthz, /metrics, /predict of each JPEG
+    fixture and the PNG, /predict_batch with a corrupt item, /predict_video
+    with 8 frames and as a video/mp4 upload, and 12 concurrent keep-alive
+    clients; each answer checked."""
+    conn = http_conn(port)
+    st, _, body = http_call(conn, "GET", "/healthz")
+    health = json.loads(body)
+    if st != 200 or health["status"] != "ok" or health["int8"]:
+        raise AssertionError(f"/healthz: {st} {health}")
+    out = {"predict": {}}
+    for name, data in list(zip(names, datas)) + [(PNG_FIXTURE, png_data)]:
+        st, _, body = http_call(conn, "POST", "/predict", data)
+        res = json.loads(body)
+        if st != 200 or len(res["topk"]) != 5:
+            raise AssertionError(f"/predict {name}: {st} {res}")
+        out["predict"][name] = res["topk"]
+    st, _, body = http_call(conn, "POST", "/predict_batch", json.dumps(
+        {"images": [b64(datas[0]), b64(b"\xff\xd8corrupt"), b64(png_data)]}))
+    res = json.loads(body)["results"]
+    if st != 200 or len(res) != 3 or \
+            not res[1].get("error", "").startswith("bad image: ") or \
+            "topk" not in res[0] or "topk" not in res[2]:
+        raise AssertionError(f"/predict_batch: {st} {res}")
+    frames = [datas[i % len(datas)] for i in range(8)]
+    st, _, body = http_call(conn, "POST", "/predict_video", json.dumps(
+        {"frames": [b64(f) for f in frames]}))
+    res = json.loads(body)
+    if st != 200 or res.get("clip_frames") != 8 or \
+            res.get("frames_received") != 8:
+        raise AssertionError(f"/predict_video frames: {st} {res}")
+    st, _, body = http_call(conn, "POST", "/predict_video", b"\x00" * 1024,
+                            {"Content-Type": "video/mp4"})
+    res = json.loads(body)
+    if st != 400 or not res.get("error", "").startswith("bad video: "):
+        raise AssertionError(f"/predict_video video/mp4: {st} {res}")
+    out["video_upload"] = res["error"]
+    out["cv2_installed"] = importlib.util.find_spec("cv2") is not None
+    errors = []
+
+    def client(i):
+        try:
+            c = http_conn(port)
+            for k in range(3):
+                st, _, body = http_call(c, "POST", "/predict",
+                                        datas[(i + k) % len(datas)])
+                if st != 200:
+                    errors.append((i, st, body))
+            c.close()
+        except Exception as exc:        # reported below
+            errors.append((i, repr(exc)))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(HTTP_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"keep-alive clients: {errors}")
+    st, _, body = http_call(conn, "GET", "/metrics")
+    text = body.decode()
+    for key in ("serving_requests_total", "serving_request_errors_total",
+                "serving_latency_seconds_bucket", "serving_queue_depth"):
+        if key not in text:
+            raise AssertionError(f"/metrics lacks {key}")
+    conn.close()
+    return out
+
+
+def check_http(pred, names, datas, crops, png_data, bound):
+    """The HTTP server on the card: the main path counted, its answers
+    against the golden crops' logits, the PNG against its JPEG, and the
+    nvJPEG decoders over HTTP_CONNECTIONS short connections."""
+    decoders0 = jpeg.decoder_count()
+    d0 = dispatches(pred)
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with HttpServer(pred) as srv:
+            t0 = time.perf_counter()
+            res, launches = counted(
+                lambda: http_traffic(srv.port, names, datas, png_data))
+            wall = time.perf_counter() - t0
+            n_disp = int(dispatches(pred) - d0)
+            decoded = jpeg.decode_count
+
+            def short(i):
+                c = http_conn(srv.port)
+                st, _, _ = http_call(c, "POST", "/predict",
+                                     datas[i % len(datas)])
+                c.close()
+                return st
+
+            statuses = collections.Counter()
+            for lo in range(0, HTTP_CONNECTIONS, 20):
+                group = [None] * 20
+
+                def run(k, lo=lo, group=group):
+                    group[k] = short(lo + k)
+
+                threads = [threading.Thread(target=run, args=(k,))
+                           for k in range(20)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=120)
+                statuses.update(group)
+            made = jpeg.decoder_count() - decoders0
+        # the golden comparison: the crops the server makes, and the JAX
+        # pipeline's, through one forward each
+        served = torch.stack([pred.preprocess(d) for d in datas])
+        png_crop = pred.preprocess(png_data)
+        logits = pred.logits(pred._weights, served).cpu().numpy()
+        golden = pred.logits(pred._weights, torch.from_numpy(
+            crops["eval"]).cuda()).cpu().numpy()
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    expect_launches("HTTP serving", launches, n_disp)
+    if not 0 < launches["ycc_to_rgb"] <= decoded:
+        raise AssertionError(f"HTTP: colour kernel launched "
+                             f"{launches['ycc_to_rgb']} times for "
+                             f"{decoded} decodes on the card")
+    rel = float(np.abs(logits - golden).max() / np.abs(golden).max())
+    for i, name in enumerate(names):
+        got = res["predict"][name]
+        want = softmax(logits[i])
+        top = [e["class"] for e in got]
+        if top[0] != int(np.argmax(want)) or not np.allclose(
+                [e["prob"] for e in got], want[top], rtol=1e-3, atol=1e-7):
+            raise AssertionError(f"/predict {name}: {got} vs the served "
+                                 f"crop's {want[top]}")
+    k = names.index(PNG_FIXTURE.replace(".png", ".jpg"))
+    png_gap = decode_gap(png_crop.cpu().numpy(), served[k].cpu().numpy())
+    check_decode_gap("the PNG's crop against its JPEG's", png_gap)
+    out = {"requests_s": wall, "dispatches": n_disp, "launches": launches,
+           "decoded_on_card": decoded, "logits_rel_vs_golden": rel,
+           "bound": bound, "png_vs_jpeg": png_gap,
+           "video_upload_error": res["video_upload"],
+           "cv2_installed": res["cv2_installed"],
+           "connections": dict(statuses), "decoders_made": made,
+           "topk": res["predict"]}
+    log(f"HTTP on the card (TF32 off): 7 JPEGs, a PNG, a batch with a "
+        f"corrupt item, a video as frames and as video/mp4 ('"
+        f"{res['video_upload'][:60]}...'; OpenCV installed: "
+        f"{res['cv2_installed']}), {HTTP_CLIENTS} keep-alive "
+        f"clients x 3 in {wall:.2f} s; {n_disp} dispatches; {decoded} "
+        f"images decoded on the card; launches {launches}")
+    log(f"HTTP crops vs the JAX golden crops, logits: relative {rel:.3e} "
+        f"(bound {bound:.3e}, phase 6's); PNG crop vs its JPEG's: mean |d| "
+        f"{png_gap['mean']:.3f}, max {png_gap['max']}")
+    log(f"{HTTP_CONNECTIONS} short connections: statuses {dict(statuses)}; "
+        f"nvJPEG decoders made over the HTTP run: {made} (decode threads "
+        f"{DECODE_THREADS})")
+    if not rel <= bound:
+        raise AssertionError(f"HTTP logits off the golden crops' by "
+                             f"{rel:.3e} > {bound:.3e}")
+    if statuses != {200: HTTP_CONNECTIONS} or not 0 < made <= DECODE_THREADS:
+        raise AssertionError(f"short connections {dict(statuses)}, "
+                             f"{made} nvJPEG decoders made")
+    return out
+
+
+def http_times(pred, names, datas, card):
+    """/predict latency at 1 and HTTP_CLIENTS clients over the two 1280x720
+    fixtures, and /predict_batch images/s (cuDNN's default TF32)."""
+    mpii = [d for n, d in zip(names, datas) if n in MPII_FIXTURES]
+    out = {}
+    with HttpServer(pred) as srv:
+        def latencies(n, offset=0, conn=None):
+            c = conn or http_conn(srv.port)
+            lat = []
+            for i in range(n):
+                t0 = time.perf_counter()
+                st, _, _ = http_call(c, "POST", "/predict",
+                                     mpii[(offset + i) % 2])
+                lat.append(time.perf_counter() - t0)
+                if st != 200:
+                    raise AssertionError(f"/predict: {st}")
+            return lat
+
+        c = http_conn(srv.port)
+        latencies(5, conn=c)                     # warm
+        one = latencies(40, conn=c)
+        many = [None] * HTTP_CLIENTS
+        threads = [threading.Thread(
+            target=lambda i=i: many.__setitem__(i, latencies(10, i)))
+            for i in range(HTTP_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall_many = time.perf_counter() - t0
+        many = [x for lat in many for x in lat]
+        body = json.dumps({"images": [b64(mpii[i % 2]) for i in range(32)]})
+        http_call(c, "POST", "/predict_batch", body)      # warm
+        t0 = time.perf_counter()
+        for _ in range(4):
+            st, _, _ = http_call(c, "POST", "/predict_batch", body)
+            if st != 200:
+                raise AssertionError(f"/predict_batch: {st}")
+        batch_rate = 4 * 32 / (time.perf_counter() - t0)
+    for key, lat in (("1", one), (str(HTTP_CLIENTS), many)):
+        out[f"predict_ms_p50_{key}_clients"] = float(
+            np.percentile(lat, 50) * 1e3)
+        out[f"predict_ms_p90_{key}_clients"] = float(
+            np.percentile(lat, 90) * 1e3)
+    out[f"requests_per_s_{HTTP_CLIENTS}_clients"] = len(many) / wall_many
+    out["predict_batch_images_per_s"] = batch_rate
+    log(f"HTTP /predict over the two 1280x720 fixtures on {card}: 1 client "
+        f"p50 {out['predict_ms_p50_1_clients']:.3f} ms, p90 "
+        f"{out['predict_ms_p90_1_clients']:.3f} ms; {HTTP_CLIENTS} clients "
+        f"p50 {out[f'predict_ms_p50_{HTTP_CLIENTS}_clients']:.3f} ms, p90 "
+        f"{out[f'predict_ms_p90_{HTTP_CLIENTS}_clients']:.3f} ms, "
+        f"{out[f'requests_per_s_{HTTP_CLIENTS}_clients']:.1f} requests/s; "
+        f"/predict_batch of 32: {batch_rate:.1f} images/s (TF32 on)")
+    return out
+
+
+def check_http_limits(pred, datas):
+    """A real overload (the worker held, a queue of 2) answers 429 with a
+    Retry-After; a connection over the cap answers 503."""
+    gated = GatedPredictor(pred)
+    statuses = []
+    with HttpServer(gated, max_batch=1, max_queue=2, decode_threads=1) as srv:
+        def fire(i):
+            st, hdrs, _ = http_call(http_conn(srv.port), "POST", "/predict",
+                                    datas[i % len(datas)])
+            statuses.append((st, hdrs.get("Retry-After")))
+
+        threads = [threading.Thread(target=fire, args=(i,)) for i in range(6)]
+        try:
+            for t in threads:
+                t.start()
+                time.sleep(0.1)
+            time.sleep(0.5)
+            rejected = list(statuses)
+        finally:
+            gated.gate.set()
+        for t in threads:
+            t.join(timeout=120)
+    if not rejected or any(st != 429 or not ra or int(ra) < 1
+                           for st, ra in rejected) or \
+            sorted(st for st, _ in statuses) != \
+            [200] * (6 - len(rejected)) + [429] * len(rejected):
+        raise AssertionError(f"overload: {statuses}")
+    with HttpServer(pred, max_connections=2, decode_threads=1) as srv:
+        socks = [socket.create_connection(("127.0.0.1", srv.port),
+                                          timeout=30) for _ in range(2)]
+        for s in socks:
+            s.sendall(b"GET /healthz HTTP/1.1\r\nHost: x\r\n\r\n")
+            if not s.recv(4096).startswith(b"HTTP/1.1 200"):
+                raise AssertionError("a capped connection was refused")
+        third = socket.create_connection(("127.0.0.1", srv.port), timeout=30)
+        third.sendall(b"GET /healthz HTTP/1.1\r\nHost: x\r\n\r\n")
+        answer = third.recv(4096)
+        for s in socks + [third]:
+            s.close()
+    if not answer.startswith(b"HTTP/1.1 503"):
+        raise AssertionError(f"over the cap: {answer[:80]!r}")
+    first_line = answer.split(b"\r\n")[0].decode()
+    log(f"overload (worker held, queue 2): statuses {statuses}; over the "
+        f"connection cap: {first_line}")
+    return {"overload": statuses, "over_cap": first_line}
+
+
+def _conv_shapes(image_size=224):
+    """(in channels, kernel, stride, out channels, input size) of every
+    conv of ResNet-101 at ``image_size``, as the folded forward runs them."""
+    size = -(-image_size // 4)
+    convs, depth_in = {(3, 7, 2, 64, image_size)}, 64
+    for b, (units, stride) in enumerate(zip((3, 4, 23, 3), (2, 2, 2, 1))):
+        base = 64 * 2 ** b
+        for u in range(units):
+            s = stride if u == units - 1 else 1
+            if depth_in != base * 4:
+                convs.add((depth_in, 1, s, base * 4, size))
+            out = -(-size // s)
+            convs |= {(depth_in, 1, 1, base, size), (base, 3, s, base, size),
+                      (base, 1, 1, base * 4, out)}
+            size, depth_in = out, base * 4
+    return sorted(convs)
+
+
+def check_int8_conv():
+    """Every int8 conv of ResNet-101 at 224 px at buckets 1 and 32 through
+    ``torch._int_mm`` on the card, against the float64 accumulator of the
+    same int8 values on the CPU: bit for bit."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(0)
+    n = 0
+    t0 = time.perf_counter()
+    for batch in (1, 32):
+        for cin, k, stride, cout, size in _conv_shapes():
+            xq = torch.from_numpy(rng.integers(
+                -127, 128, (batch, size, size, cin), dtype=np.int8))
+            wq = torch.from_numpy(rng.integers(
+                -127, 128, (cout, cin, k, k), dtype=np.int8))
+            got = inf._int8_conv(xq.cuda(), wq.cuda(), k, stride).cpu()
+            beg, end = inf._same_pads(k)
+            x64 = xq.permute(0, 3, 1, 2).double()
+            if stride != 1:
+                x64 = F.pad(x64, (beg, end, beg, end))
+            want = F.conv2d(x64, wq.double(), stride=stride,
+                            padding=beg if stride == 1 else 0)
+            if not torch.equal(got, want.permute(0, 2, 3, 1).to(torch.int32)):
+                case = (batch, cin, k, stride, cout, size)
+                raise AssertionError(f"int8 conv on the card differs from "
+                                     f"the CPU accumulator at {case}")
+            n += 1
+    log(f"int8 conv (torch._int_mm, im2col) on the card vs the CPU's "
+        f"float64 accumulator: {n} cases ({n // 2} conv shapes of "
+        f"ResNet-101 at 224 px, buckets 1 and 32) bit for bit in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return n
+
+
+def l2(got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).norm() / want.norm())
+
+
+def cosine(a, b):
+    a, b = a.double().cpu().flatten(), b.double().cpu().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def check_int8_forward(pred, variables, crops):
+    """The folded float forward against the model's, int8 against folded
+    float, and int8 on the card against int8 on the CPU (batch 2), TF32
+    off."""
+    params, stats = variables
+    cfg = pred.cfg
+    x = normalize_images(torch.from_numpy(crops["eval"][:2]).cuda())
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        folded = inf.fold_backbone({"params": params, "batch_stats": stats},
+                                   cfg.backbone, device="cuda")
+        head = inf.head_weights(params, "cuda")["head"]
+        q = inf.quantize_folded(folded)
+        fwd = functools.partial(inf.folded_forward, backbone=cfg.backbone)
+        with torch.inference_mode():
+            model = pred._weights(x)
+            fold = fwd(folded, head, x, dtype=torch.float32)
+            int8 = fwd(q, head, x, dtype=torch.float32)
+            int8_bf16 = fwd(q, head, x)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    cpu_folded = inf.fold_backbone({"params": params, "batch_stats": stats},
+                                   cfg.backbone, device="cpu")
+    cpu_head = inf.head_weights(params, "cpu")["head"]
+    with torch.inference_mode():
+        cpu = fwd(inf.quantize_folded(cpu_folded), cpu_head, x.cpu())
+    out = {"fold_rel": {k: float((fold[k] - model[k]).abs().max()
+                                 / model[k].abs().max())
+                        for k in ("features", "logits")},
+           "int8_cosine": {k: cosine(int8[k], fold[k])
+                           for k in INT8_COSINE},
+           "card_vs_cpu_l2": {k: l2(int8_bf16[k], cpu[k])
+                              for k in INT8_CPU_L2},
+           "features_bit_equal": bool(torch.equal(
+               int8_bf16["features"].cpu(), cpu["features"]))}
+    log(f"folded float forward vs the model (2 golden crops, TF32 off): "
+        f"features {out['fold_rel']['features']:.3e}, logits "
+        f"{out['fold_rel']['logits']:.3e} relative (tolerance {FOLD_RTOL:g}); "
+        f"int8 vs folded float cosines {out['int8_cosine']}; int8 (bf16) "
+        f"card vs CPU, relative L2 {out['card_vs_cpu_l2']} (bounds "
+        f"{INT8_CPU_L2}), features bit for bit: "
+        f"{out['features_bit_equal']}")
+    if max(out["fold_rel"].values()) > FOLD_RTOL:
+        raise AssertionError(f"folded forward off the model: {out}")
+    if any(out["int8_cosine"][k] <= v for k, v in INT8_COSINE.items()):
+        raise AssertionError(f"int8 off the float forward: {out}")
+    if any(out["card_vs_cpu_l2"][k] > v for k, v in INT8_CPU_L2.items()):
+        raise AssertionError(f"int8 card off the CPU: {out}")
+    return out
+
+
+def serve_in_turns(preds, crops_u8, rounds=4, reps=5):
+    """Median ms of a predict_arrays call of each predictor at buckets
+    1/8/32, the predictors in turns (a, b, b, a, ...)."""
+    times = {name: {b: [] for b in (1, 8, 32)} for name in preds}
+    names = list(preds)
+    for b in (1, 8, 32):
+        images = crops_u8[np.arange(b) % len(crops_u8)]
+        for name in names:                        # warm
+            preds[name].predict_arrays(images)
+        for r in range(rounds):
+            for name in (names if r % 2 == 0 else names[::-1]):
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    preds[name].predict_arrays(images)
+                    times[name][b].append(time.perf_counter() - t0)
+    return {name: {b: float(np.median(v) * 1e3) for b, v in t.items()}
+            for name, t in times.items()}
+
+
+def int8_serving(cfg, pred, crops, names, card, profile):
+    """load_predictor(int8=True) with and without calibration files, each
+    call counted; int8 against float logits; float vs int8 ms a call in
+    turns."""
+    t0 = time.perf_counter()
+    pred8 = serving.load_predictor(cfg, int8=True, buckets=(1, 8, 32),
+                                   device="cuda")
+    calib = [os.path.join(FIXTURES, n) for n in names]
+    pred8c = serving.load_predictor(cfg, int8=True, buckets=(1, 8, 32),
+                                    calibration_files=calib, device="cuda")
+    build_s = time.perf_counter() - t0
+    u8 = crops["eval"]
+    out = {"build_s": build_s}
+    total = collections.Counter()
+    ref = pred.logits(pred._weights, torch.from_numpy(u8).cuda())
+    for what, p in (("dynamic", pred8), ("static", pred8c)):
+        probs, launches = counted(lambda p=p: p.predict_arrays(u8))
+        expect_launches(f"int8 serving ({what} scales), 7 images", launches,
+                        1, ycc=0)
+        total.update(launches)
+        if not (np.isfinite(probs).all() and np.allclose(probs.sum(-1), 1,
+                                                         atol=1e-3)):
+            raise AssertionError(f"int8 serving ({what}): bad probabilities")
+        cos = cosine(p.logits(p._weights, torch.from_numpy(u8).cuda()), ref)
+        out[f"{what}_logits_cosine_vs_float"] = cos
+        if cos <= INT8_COSINE["logits"]:
+            raise AssertionError(f"int8 serving ({what}) logits cosine "
+                                 f"{cos:.4f} vs float")
+    out["launches"] = dict(total)
+    out["ms"] = serve_in_turns({"float": pred, "int8": pred8}, u8)
+    log(f"int8 serving, built (fold, calibrate on 7 fixtures, quantize) in "
+        f"{build_s:.1f} s for both; logits cosine vs float: dynamic "
+        f"{out['dynamic_logits_cosine_vs_float']:.4f}, static "
+        f"{out['static_logits_cosine_vs_float']:.4f}; launches "
+        f"{out['launches']}")
+    log(f"predict_arrays ms a call, in turns, on {card}: float (TF32) "
+        + " / ".join(f"{v:.3f}" for v in out["ms"]["float"].values())
+        + ", int8 (bf16 activations) "
+        + " / ".join(f"{v:.3f}" for v in out["ms"]["int8"].values())
+        + " at buckets 1/8/32")
+    if profile:
+        log("profile of the int8 predictor:")
+        phase_profile(pred8)
+    return out
+
+
+def int8_eval(cfg, workdir, datas):
+    """eval_cli of the seeded checkpoint over 48 MPII eval records (the
+    fixtures'), float and with --set eval_int8=true; counted."""
+    paths = write_records(workdir, datas)
+    out = {}
+    for what, extra in (("float", []), ("int8", ["--set", "eval_int8=True"])):
+        t0 = time.perf_counter()
+        printed, launches = counted(lambda extra=extra: eval_cli.main([
+            "--config", "mpii_rank1_224", "--workdir", cfg.workdir,
+            "--eval_pattern", paths["val"], "--notb", *extra]))
+        line = printed[-1]
+        expect_launches(f"eval_cli ({what}): 6 batches", launches, 6)
+        if set(line) != EVAL_KEYS or line["num_examples"] != 48 or \
+                not np.isfinite(line["mAP"]):
+            raise AssertionError(f"eval_cli ({what}) printed {line}")
+        out[what] = {"line": line, "launches": launches,
+                     "s": time.perf_counter() - t0}
+    log(f"eval_cli over 48 records: float mAP "
+        f"{out['float']['line']['mAP']:.6f} ({out['float']['s']:.1f} s), "
+        f"int8 mAP {out['int8']['line']['mAP']:.6f} "
+        f"({out['int8']['s']:.1f} s); int8 launches "
+        f"{out['int8']['launches']}")
+    return out
+
+
+def run_predict_cli(workdir, names, http_topk):
+    """predict_cli over the fixtures in a subprocess, float and --int8: a
+    JSON line an image; the float classes against HTTP's."""
+    paths = [os.path.join(FIXTURES, n) for n in names] + [
+        os.path.join(FIXTURES, PNG_FIXTURE)]
+    out = {}
+    for what, extra in (("float", []), ("int8", ["--int8"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "attentionalpoolingaction_torch.predict_cli",
+             "--workdir", workdir, "--images", *paths, *extra],
+            capture_output=True, text=True, timeout=600, cwd=HERE)
+        if proc.returncode:
+            raise AssertionError(f"predict_cli {what}: {proc.stderr[-3000:]}")
+        lines = [json.loads(x) for x in proc.stdout.strip().splitlines()]
+        if [x["image"] for x in lines] != paths or \
+                any(len(x["topk"]) != 5 for x in lines):
+            raise AssertionError(f"predict_cli {what}: {lines}")
+        out[what] = {"s": time.perf_counter() - t0, "lines": lines}
+    for line in out["float"]["lines"]:
+        want = {e["class"]: e["prob"]
+                for e in http_topk[os.path.basename(line["image"])]}
+        got = {e["class"]: e["prob"] for e in line["topk"]}
+        shared = set(got) & set(want)
+        if line["topk"][0]["class"] not in want or not all(
+                abs(got[c] - want[c]) <= CLI_PROB_RTOL * want[c]
+                for c in shared):
+            raise AssertionError(f"predict_cli vs HTTP on {line['image']}: "
+                                 f"{got} vs {want}")
+    log(f"predict_cli in a subprocess over 8 images: float "
+        f"{out['float']['s']:.1f} s, --int8 {out['int8']['s']:.1f} s "
+        f"(process start, model build and restore included); float top-1 "
+        f"within HTTP's top-5 for every image")
+    return {k: v["s"] for k, v in out.items()}
+
+
+def int8_clip(names, datas):
+    """hmdb51_clip8 (seeded weights) serving an int8 clip of 8 frames
+    through predict_clip_bytes, counted; its logits against the float
+    clip's."""
+    cfg = config_lib.get_config("hmdb51_clip8")
+    params, stats = precision.seeded_variables(cfg, 3)
+    pred = serving.Predictor(cfg, params, stats, buckets=(1,), device="cuda")
+    pred8 = serving.Predictor(cfg, params, stats, buckets=(1,), int8=True,
+                              device="cuda")
+    frames = [d for n, d in zip(names, datas) if n in FRAME_FIXTURES] * 3
+    res, launches = counted(lambda: pred8.predict_clip_bytes(frames, topk=3))
+    expect_launches("hmdb51_clip8 int8 clip", launches, 1)
+    if res.get("clip_frames") != 8 or res.get("frames_received") != 9 or \
+            len(res.get("topk", ())) != 3:
+        raise AssertionError(f"hmdb51_clip8 int8 clip: {res}")
+    clip = torch.stack([pred.preprocess(frames[p]) for p in
+                        grain_pipeline._segment_picks(len(frames), 8)])[None]
+    cos = cosine(pred8.logits(pred8._weights, clip),
+                 pred.logits(pred._weights, clip))
+    log(f"hmdb51_clip8 int8 clip of 9 frames (8 picked): {res['topk'][:2]};"
+        f" logits cosine vs float {cos:.4f}; launches {launches}")
+    if cos <= INT8_COSINE["logits"]:
+        raise AssertionError(f"hmdb51_clip8 int8 clip cosine {cos:.4f}")
+    return {"launches": launches, "cosine_vs_float": cos}
+
+
+def with_bn_statistics(variables, seed):
+    """``variables`` with seeded BN scales, offsets, means and variances
+    (the seeded weights have 1, 0, 0 and 1), so that folding BN into the
+    convs has something to fold."""
+    params, stats = copy.deepcopy(variables)
+    rng = np.random.default_rng(seed)
+
+    def walk(p, s):
+        for k in p:
+            if k.endswith("_bn"):
+                c = p[k]["scale"].shape[0]
+                p[k]["scale"] = rng.uniform(0.8, 1.2, c).astype(np.float32)
+                p[k]["bias"] = rng.normal(0, 0.1, c).astype(np.float32)
+                s[k]["mean"] = rng.normal(0, 0.1, c).astype(np.float32)
+                s[k]["var"] = rng.uniform(0.5, 2.0, c).astype(np.float32)
+            elif k in s:
+                walk(p[k], s[k])
+
+    walk(params["resnet"], stats["resnet"])
+    return params, stats
+
+
+def phase_http_serving(card, golden_bound, profile=False):
+    """Serving mpii_rank1_224 on the card from a checkpoint: the HTTP
+    server, int8, int8 eval, predict_cli; see the module docstring,
+    phase 8."""
+    t_phase = time.monotonic()
+    names, datas, crops, _ = load_fixtures()
+    with open(os.path.join(FIXTURES, PNG_FIXTURE), "rb") as f:
+        png_data = f.read()
+    out = {"config": "mpii_rank1_224", "card": card,
+           "int8_conv_cases": check_int8_conv()}
+    base = config_lib.get_config("mpii_rank1_224")
+    variables = with_bn_statistics(precision.seeded_variables(base, 8), 8)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serving_") as d:
+        cfg = dataclasses.replace(base, workdir=d)
+        state, _ = train.create_state(cfg, device="cuda", variables=variables)
+        checkpoint.save(checkpoint.make_manager(
+            os.path.join(d, "checkpoints")), state)
+        del state
+        pred = serving.load_predictor(cfg, buckets=(1, 8, 32), device="cuda")
+        pred.warmup()
+        out["http"] = check_http(pred, names, datas, crops, png_data,
+                                 golden_bound)
+        out["http_times"] = http_times(pred, names, datas, card)
+        out["http_limits"] = check_http_limits(pred, datas)
+        out["int8_forward"] = check_int8_forward(pred, variables, crops)
+        out["int8_serving"] = int8_serving(cfg, pred, crops, names, card,
+                                           profile)
+        del pred
+        out["int8_eval"] = int8_eval(cfg, d, datas)
+        out["predict_cli_s"] = run_predict_cli(d, names, out["http"]["topk"])
+    out["clip8_int8"] = int8_clip(names, datas)
+    out["phase_s"] = time.monotonic() - t_phase
+    log(f"phase 8 took {out['phase_s']:.1f} s (workdir removed)")
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -2349,6 +3075,8 @@ def main():
     configs = phase_configs(card)
     hico, hmdb, clip8 = (configs[k] for k in (
         "hico_multilabel", "hmdb51_rgb", "hmdb51_clip8"))
+    served = phase_http_serving(card, rec_run["record_logits"]["bound"],
+                                profile=args.profile)
 
     def path_launches(name):
         """The launches of ``name`` on each main path, each counted over
@@ -2367,7 +3095,14 @@ def main():
                 "hmdb_rgb_train_launches": hmdb["train_launches"][name],
                 "hmdb_rgb_eval_launches": hmdb["eval_launches"][name],
                 "clip8_train_launches": clip8["launches"][name],
-                "clip8_eval_launches": clip8["eval_launches"][name]}
+                "clip8_eval_launches": clip8["eval_launches"][name],
+                "http_launches": served["http"]["launches"][name],
+                "int8_serve_launches":
+                    served["int8_serving"]["launches"][name],
+                "int8_eval_launches":
+                    served["int8_eval"]["int8"]["launches"][name],
+                "clip8_int8_serve_launches":
+                    served["clip8_int8"]["launches"][name]}
 
     kernels = []
     for name in ("saliency_summary", "project_logits"):
@@ -2401,6 +3136,8 @@ def main():
     log(json.dumps({"records_run": {
         k: v for k, v in rec_run.items() if k not in ("clis", "resume")}}))
     log(json.dumps({"configs_run": configs}, default=str))
+    log(json.dumps({"serving_run": {
+        k: v for k, v in served.items() if k != "http"}}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,8 @@ imports no JAX).  Writes, beside this file:
     lines, text and mild noise): two at MPII's 1280x720, a portrait, an
     odd size (all 4:2:0), a grayscale one, and one each with 4:4:4 and
     4:2:2 chroma;
+  * ``odd_517x333.png``: the odd-size JPEG as OpenCV decodes it, written
+    losslessly as an RGB PNG by OpenCV (serving's PNG path);
   * ``golden.npz``: for each JPEG, in ``NAMES`` order, the JAX pipeline's
     output (``cv2.imdecode`` + ``preprocess_decoded_np(keep_uint8=True)``,
     224 px out of ``resize_min`` 256, ``resize_max`` 512) at the eval
@@ -42,6 +44,7 @@ SPECS = {
     "yuv422_480x360.jpg": (360, 480, False, "422", 85),
 }
 NAMES = list(SPECS)
+PNG_OF = "odd_517x333.jpg"
 
 
 def scene(h: int, w: int, seed: int) -> np.ndarray:
@@ -112,6 +115,13 @@ def main():
             f.write(data)
         datas.append(data)
         print(f"{name}: {len(data)} bytes")
+    png_name = PNG_OF.replace(".jpg", ".png")
+    ok, buf = cv2.imencode(".png", cv2.imdecode(
+        np.frombuffer(datas[NAMES.index(PNG_OF)], np.uint8), cv2.IMREAD_COLOR))
+    assert ok
+    with open(os.path.join(HERE, png_name), "wb") as f:
+        f.write(buf.tobytes())
+    print(f"{png_name}: {len(buf)} bytes")
     gold = golden(datas)
     for kind in ("eval", "train"):
         gold[f"{kind}_image_dx"] = np.diff(

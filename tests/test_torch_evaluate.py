@@ -205,9 +205,13 @@ def test_evaluator_reloads_and_pipelining_keeps_bits():
 
 def test_unported_eval_paths_raise():
     cfg = config_lib.TrainConfig(**make_cfg("mpii"))
-    with pytest.raises(NotImplementedError, match="int8"):
-        eval_lib.Evaluator(dataclasses.replace(cfg, eval_int8=True),
-                           device="cpu")
+    # int8 evaluation is ported (tests/test_torch_inference.py); a sharded
+    # int8 step is not
+    int8 = eval_lib.Evaluator(dataclasses.replace(cfg, eval_int8=True),
+                              device="cpu")
+    assert int8.model is None and int8.int8_step is not None
+    with pytest.raises(NotImplementedError, match="sharded"):
+        eval_lib.make_int8_eval_step(cfg, mesh=object(), device="cpu")
     evaluator = eval_lib.Evaluator(cfg, device="cpu")
     params, stats = variables_for("mpii")
     # without an eval_iter the split is read from cfg.eval_pattern

@@ -2,9 +2,10 @@
 Orbax, Grain, absl, CLU, TensorBoard, ArrayRecord or PIL (the card's
 machine has none of them): a static scan of every module of
 attentionalpoolingaction_torch/ and of chip_smoke.py.  Static, because an
-interpreter may have JAX loaded already.  OpenCV is imported in two
-places only: ``data/jpeg.py``'s CPU decoder and the default JPEG encoder
-of ``data/records.py``'s ``write_synthetic_dataset``.  The modules of the
+interpreter may have JAX loaded already.  OpenCV is imported in three
+places only: ``data/jpeg.py``'s CPU decoder, the default JPEG encoder
+of ``data/records.py``'s ``write_synthetic_dataset`` and serving's
+video-container decoder (``serving.decode_video_frames``).  The modules of the
 card's path import with cv2, tensorflow and grain unavailable."""
 
 import ast
@@ -21,7 +22,9 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "attentionalpoolingaction_tpu",
 # (module, function) pairs that may import cv2, and nothing else may
 CV2_ALLOWED = {("attentionalpoolingaction_torch/data/jpeg.py", "_decode_cpu"),
                ("attentionalpoolingaction_torch/data/records.py",
-                "_cv2_encode_jpeg")}
+                "_cv2_encode_jpeg"),
+               ("attentionalpoolingaction_torch/serving.py",
+                "decode_video_frames")}
 FILES = sorted((ROOT / "attentionalpoolingaction_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -82,7 +85,8 @@ def test_scan_sees_every_module():
                 "models/heads", "models/action_model", "models/factory",
                 "train_cli", "eval_cli", "data/records", "data/native_io",
                 "data/preprocessing", "data/jpeg", "data/grain_pipeline",
-                "data/pipeline", "utils/metrics_writer", "utils/profiling"):
+                "data/pipeline", "utils/metrics_writer", "utils/profiling",
+                "models/inference", "data/png", "serve_cli", "predict_cli"):
         assert f"attentionalpoolingaction_torch/{mod}.py" in names
     assert set(cv2_importers(
         ROOT / "attentionalpoolingaction_torch/data/jpeg.py")) == {
@@ -116,6 +120,10 @@ def test_card_path_imports_without_host_libraries():
         "import attentionalpoolingaction_torch.data.jpeg\n"
         "import attentionalpoolingaction_torch.utils.profiling\n"
         "import attentionalpoolingaction_torch.serving\n"
+        "import attentionalpoolingaction_torch.serve_cli\n"
+        "import attentionalpoolingaction_torch.predict_cli\n"
+        "import attentionalpoolingaction_torch.models.inference\n"
+        "import attentionalpoolingaction_torch.data.png\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)

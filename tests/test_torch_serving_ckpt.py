@@ -77,9 +77,14 @@ def test_load_predictor_errors(run, tmp_path):
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         serving.load_predictor(dataclasses.replace(cfg, workdir=str(tmp_path)),
                                device="cpu")
-    for kw in (dict(int8=True), dict(calibration_files=("a.jpg",)),
-               dict(data_parallel=True)):
-        with pytest.raises(NotImplementedError):
+    # int8 serving is ported (tests/test_torch_serving_bytes.py); a
+    # missing calibration file raises, data-parallel serving is not ported
+    with pytest.raises(FileNotFoundError):
+        serving.load_predictor(cfg, device="cpu", int8=True,
+                               calibration_files=("no-such.jpg",))
+    for kw in (dict(data_parallel=True),
+               dict(int8=True, data_parallel=True)):
+        with pytest.raises(NotImplementedError, match="data-parallel"):
             serving.load_predictor(cfg, device="cpu", **kw)
     no_ema = ckpt_lib.EvalState(step=0, params={}, batch_stats={})
     with pytest.raises(ValueError, match="no ema_params"):
