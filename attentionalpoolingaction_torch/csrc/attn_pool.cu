@@ -20,7 +20,9 @@
 // from HBM once, spreads that read over many SMs and keeps barriers few.
 // The launch plans are computed in Python (ops/attn_pool_cuda.py:
 // saliency_plan, project_plan) and checked here against the kernels'
-// shared-memory layouts.
+// shared-memory layouts.  The head's backward is attn_pool_backward.cu,
+// which shares this file's helpers (attn_pool_common.cuh) and builds beside
+// it.
 //
 // saliency_summary: one image over a thread-block cluster of S CTAs
 // (S in 1, 2, 4, 8, 16; 16 is non-portable), each owning F / S columns.
@@ -62,21 +64,13 @@
 //     memory, in rank order 0..KS-1, with no float atomics: four outputs by
 //     one thread of the cluster, which then adds ssum attn_b^T once.
 //
-// Both take f32 X or bf16 X (upcast in the load), accumulate in f32 on the
-// CUDA cores, launch on the caller's stream through cudaLaunchKernelEx,
+// Both take f32 X or bf16 X (upcast in the load), accumulate in f32 on
+// the CUDA cores, launch on the caller's stream through cudaLaunchKernelEx,
 // allocate nothing and return the launch's cudaError_t.  Every sum runs in
 // an order fixed by the plan, so two launches give identical bits.
 
-#include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "attn_pool_common.cuh"
 
-namespace cg = cooperative_groups;
-
-#define APA_MAX_RANK 8
-#define APA_MAX_CLUSTER 16
-#define APA_SAL_THREADS 256
 #define APA_PROJ_THREADS 256
 #define APA_PROJ_WARPS (APA_PROJ_THREADS / 32)
 #define APA_PROJ_COLS 32           // classes a CTA owns, one a lane
@@ -104,64 +98,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
 // Wait until all of this thread's cp.asyncs have landed.
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// -- 16-byte vectors of X: load16() loads, unpack() upcasts ----------------------
-
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<float> {
-  static constexpr int kN = 4;
-  __device__ __forceinline__ static void unpack(const uint4& u, float* out) {
-    out[0] = __uint_as_float(u.x);
-    out[1] = __uint_as_float(u.y);
-    out[2] = __uint_as_float(u.z);
-    out[3] = __uint_as_float(u.w);
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  __device__ __forceinline__ static void unpack(const uint4& u, float* out) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-};
-
-template <typename T>
-__device__ __forceinline__ uint4 load16(const T* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-
-// Column groups of 16 bytes a lane may own in phase 1: the most of 4, 2, 1
-// whose sal_w values (P x groups x kN floats) stay within 64 registers.
-// The Python plan mirrors this (_lane_groups in ops/attn_pool_cuda.py).
-template <typename T, int P>
-__host__ __device__ constexpr int lane_groups() {
-  return 64 / (P * Vec<T>::kN) >= 4 ? 4 : 64 / (P * Vec<T>::kN) >= 2 ? 2 : 1;
-}
-
-__host__ __device__ inline size_t align16(size_t n) {
-  return (n + 15) & ~size_t(15);
-}
-
-// Shared memory of a saliency CTA: X slice (resident path) | partial s
-// (P, N) | summed s (P, N) | phase-2 row classes (r2, P, fs).
-__host__ __device__ inline size_t saliency_smem_bytes(int N, int fs, int P,
-                                                      int itemsize,
-                                                      bool resident, int r2) {
-  size_t bytes = resident ? align16((size_t)N * fs * itemsize) : 0;
-  bytes += align16((size_t)2 * P * N * sizeof(float));
-  if (r2 > 1) bytes += (size_t)r2 * P * fs * sizeof(float);
-  return bytes;
 }
 
 // -- saliency_summary ------------------------------------------------------------
@@ -577,120 +513,24 @@ project_logits_kernel(const float* __restrict__ v,
 
 // -- launches ---------------------------------------------------------------------
 
-// Clusters of the last launch that the card can run at once, as
-// cudaOccupancyMaxActiveClusters reported it (a diagnostic for
-// chip_smoke.py; the last launch of any thread).
-int g_last_active_clusters = 0;
+struct SaliencyLaunch {
+  const void* x;
+  const float *sal_w, *sal_b;
+  float *v, *s;
+  int B, N, F, S, r2;
+  bool resident;
+  size_t smem;
+  cudaStream_t st;
 
-// Launch `kernel` on grid (gx, gy) in clusters of `cluster` along x, after
-// the attributes it needs and a check that one such cluster fits the card.
-// Returns the first error.
-template <typename... Params, typename... Args>
-cudaError_t launch_clustered(void (*kernel)(Params...), int gx, int gy,
-                             int threads, int cluster, size_t smem,
-                             cudaStream_t stream, Args... args) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  if (cluster > 8) {
-    e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return e;
+  template <typename T, int P, int J>
+  cudaError_t run() const {
+    const T* xt = static_cast<const T*>(x);
+    auto kernel = resident ? &saliency_summary_kernel<T, P, J, true>
+                           : &saliency_summary_kernel<T, P, J, false>;
+    return launch_clustered(kernel, B * S, 1, APA_SAL_THREADS, S, smem, st,
+                            xt, sal_w, sal_b, v, s, N, F, F / S, r2);
   }
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(gx, gy, 1);
-  cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-  if (e != cudaSuccess) return e;
-  g_last_active_clusters = clusters;
-  if (clusters < 1) return cudaErrorLaunchOutOfResources;
-  e = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
-}
-
-template <typename T, int P, int J>
-cudaError_t launch_saliency_groups(const T* x, const float* sal_w,
-                                   const float* sal_b, float* v, float* s,
-                                   int B, int N, int F, int S, int r2,
-                                   int resident, size_t smem,
-                                   cudaStream_t st) {
-  if (resident) {
-    return launch_clustered(saliency_summary_kernel<T, P, J, true>, B * S, 1,
-                            APA_SAL_THREADS, S, smem, st, x, sal_w, sal_b, v,
-                            s, N, F, F / S, r2);
-  }
-  return launch_clustered(saliency_summary_kernel<T, P, J, false>, B * S, 1,
-                          APA_SAL_THREADS, S, smem, st, x, sal_w, sal_b, v, s,
-                          N, F, F / S, r2);
-}
-
-template <typename T, int P>
-cudaError_t launch_saliency(const void* x, const float* sal_w,
-                            const float* sal_b, float* v, float* s, int B,
-                            int N, int F, int S, int r2, int resident,
-                            size_t smem, cudaStream_t st) {
-  const int fs = F / S;
-  const int groups = fs / Vec<T>::kN;
-  const int j = groups <= 32 ? 1 : groups <= 64 ? 2 : 4;
-  if (groups > 32 * lane_groups<T, P>()) return cudaErrorInvalidValue;
-  if (smem != saliency_smem_bytes(N, fs, P, sizeof(T), resident != 0, r2)) {
-    return cudaErrorInvalidValue;
-  }
-  const T* xt = static_cast<const T*>(x);
-  if (j == 1) {
-    return launch_saliency_groups<T, P, 1>(xt, sal_w, sal_b, v, s, B, N, F,
-                                           S, r2, resident, smem, st);
-  }
-  if constexpr (lane_groups<T, P>() >= 2) {
-    if (j == 2) {
-      return launch_saliency_groups<T, P, 2>(xt, sal_w, sal_b, v, s, B, N, F,
-                                             S, r2, resident, smem, st);
-    }
-  }
-  if constexpr (lane_groups<T, P>() >= 4) {
-    return launch_saliency_groups<T, P, 4>(xt, sal_w, sal_b, v, s, B, N, F,
-                                           S, r2, resident, smem, st);
-  }
-  return cudaErrorInvalidValue;
-}
-
-template <typename T>
-cudaError_t launch_saliency_rank(const void* x, const float* sal_w,
-                                 const float* sal_b, float* v, float* s,
-                                 int B, int N, int F, int P, int S, int r2,
-                                 int resident, size_t smem, cudaStream_t st) {
-#define APA_SAL_CASE(R)                                                    \
-  case R:                                                                  \
-    return launch_saliency<T, R>(x, sal_w, sal_b, v, s, B, N, F, S, r2,    \
-                                 resident, smem, st);
-  switch (P) {
-    APA_SAL_CASE(1)
-    APA_SAL_CASE(2)
-    APA_SAL_CASE(3)
-    APA_SAL_CASE(4)
-    APA_SAL_CASE(5)
-    APA_SAL_CASE(6)
-    APA_SAL_CASE(7)
-    APA_SAL_CASE(8)
-    default: return cudaErrorInvalidValue;
-  }
-#undef APA_SAL_CASE
-}
-
-bool valid_cluster(int S) {
-  return S == 1 || S == 2 || S == 4 || S == 8 || S == 16;
-}
+};
 
 }  // namespace
 
@@ -702,22 +542,14 @@ int apa_saliency_summary(const void* x, int x_dtype, const float* sal_w,
                          const float* sal_b, float* v, float* s, int B,
                          int N, int F, int P, int cluster, int r2,
                          int resident, long long smem, void* stream) {
-  if (!valid_cluster(cluster) || F % (8 * cluster) != 0 || r2 < 1 ||
-      r2 > APA_SAL_THREADS || B < 1 || N < 1) {
+  if (!valid_cluster_plan(x_dtype, B, N, F, P, cluster, r2, resident, smem,
+                          2)) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0) {
-    return (int)launch_saliency_rank<float>(x, sal_w, sal_b, v, s, B, N, F,
-                                            P, cluster, r2, resident,
-                                            (size_t)smem, st);
-  }
-  if (x_dtype == 1) {
-    return (int)launch_saliency_rank<__nv_bfloat16>(
-        x, sal_w, sal_b, v, s, B, N, F, P, cluster, r2, resident,
-        (size_t)smem, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  const SaliencyLaunch l{x, sal_w, sal_b, v, s, B, N, F, cluster, r2,
+                         resident != 0, (size_t)smem,
+                         static_cast<cudaStream_t>(stream)};
+  return (int)with_dtype(x_dtype, P, F / cluster, l);
 }
 
 // (k_split, k_rows, b_tile, a_resident, smem) is the launch plan of
@@ -762,3 +594,4 @@ const char* apa_error_string(int err) {
 }
 
 }  // extern "C"
+

@@ -9,14 +9,15 @@ tensor a JPEG stream, on ``device``:
     tensors that torch's allocator owns, on the current stream, with one
     nvJPEG handle and state per host thread, kept for the life of the
     process (so decode on a bounded set of threads;
-    :func:`decoder_count`); then :func:`ycc_to_rgb`, the
+    :func:`decoder_count`); then :func:`ycc_to_rgb_batch`, the
     kernel, upsamples the chroma and converts to RGB as libjpeg does
     (nvJPEG's own RGB output replicates the chroma of 4:2:0 and 4:2:2
     streams, 1-2% of an MPII image's pixels then lie more than 8 levels
-    from OpenCV's).  4:4:4, 4:2:2, 4:2:0 and grayscale streams are
-    supported; grayscale comes out as three equal channels (as
-    ``cv2.IMREAD_COLOR`` gives it); any other stream (CMYK, 4:4:0, 4:1:1),
-    or one nvJPEG refuses, raises with its index.  A failed build, a
+    from OpenCV's), every colour image of the call in one launch.
+    4:4:4, 4:2:2, 4:2:0 and grayscale streams are supported; grayscale
+    comes out as three equal channels (as ``cv2.IMREAD_COLOR`` gives it);
+    any other stream (CMYK, 4:4:0, 4:1:1), or one nvJPEG refuses, raises
+    with its index.  A failed build, a
     missing ``libnvjpeg`` or a decode error raises; nothing falls back to
     the CPU.
   * on the CPU, the plain version: ``cv2.imdecode(IMREAD_COLOR)`` and
@@ -34,6 +35,7 @@ swapped for the orientations 5-8 that transpose).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import threading
 from typing import Sequence
 
@@ -42,9 +44,11 @@ import torch
 
 from attentionalpoolingaction_torch.ops import _build
 
-__all__ = ["LIBRARY", "decode", "decode_count", "decode_planes",
-           "decoder_count", "image_size", "launch_counts", "orient",
-           "reset_counts", "ycc_to_rgb", "ycc_to_rgb_plain"]
+__all__ = ["LIBRARY", "YccBatchPlan", "decode", "decode_calls",
+           "decode_count", "decode_planes", "decoder_count", "image_size",
+           "launch_counts", "orient", "reset_counts", "ycc_batch_plan",
+           "ycc_images", "ycc_to_rgb", "ycc_to_rgb_batch",
+           "ycc_to_rgb_plain"]
 
 # nvjpegChromaSubsampling_t
 _CSS_NAMES = {0: "4:4:4", 1: "4:2:2", 2: "4:2:0", 3: "4:4:0", 4: "4:1:1",
@@ -65,8 +69,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.apj_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, i, p, i, p,
                                p, i, p]
     lib.apj_decode.restype = i
-    lib.apj_ycc_to_rgb.argtypes = [p, i, p, p, i, i, i, i, i, p, p]
-    lib.apj_ycc_to_rgb.restype = i
+    lib.apj_ycc_to_rgb_batch.argtypes = [p, p, i, i, ctypes.c_longlong, p]
+    lib.apj_ycc_to_rgb_batch.restype = i
     lib.apj_error_string.argtypes = [i]
     lib.apj_error_string.restype = ctypes.c_char_p
     lib.apj_decoder_count.argtypes = []
@@ -86,8 +90,14 @@ LIBRARY = _build.NativeLibrary(
 _count_lock = threading.Lock()
 decode_count = 0
 """Images decoded on a CUDA device (by nvJPEG) since the last reset."""
+decode_calls = 0
+"""Calls of :func:`decode` on a CUDA device since the last reset."""
 launch_counts = {"ycc_to_rgb": 0}
-"""Launches of the colour kernel since the last reset."""
+"""Launches of the colour kernel since the last reset: one a
+:func:`ycc_to_rgb_batch` call on the card, so one a :func:`decode` call
+that holds a colour image."""
+ycc_images = 0
+"""Images the colour kernel converted since the last reset."""
 
 
 def decoder_count() -> int:
@@ -97,9 +107,9 @@ def decoder_count() -> int:
 
 
 def reset_counts() -> None:
-    global decode_count
+    global decode_count, decode_calls, ycc_images
     with _count_lock:
-        decode_count = 0
+        decode_count = decode_calls = ycc_images = 0
         launch_counts["ycc_to_rgb"] = 0
 
 
@@ -219,37 +229,155 @@ def ycc_to_rgb_plain(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
     return rgb.clamp_(0, 255).to(torch.uint8)
 
 
-def ycc_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
-               hf: int, vf: int) -> torch.Tensor:
-    """uint8 (h, w, 3) RGB of a decoded colour JPEG's planes: luma (h, w)
-    and chroma of at least (ceil(h / vf), ceil(w / hf)), subsampled by hf
-    along x and vf along y (1 or 2).  On a CUDA tensor the kernel of
-    ``csrc/jpeg_decode.cu``; on a CPU tensor the plain version."""
-    if y.device.type != "cuda":
-        return ycc_to_rgb_plain(y, cb, cr, hf, vf)
-    h, w = y.shape
-    for name, t in (("y", y), ("cb", cb), ("cr", cr)):
-        if t.dtype != torch.uint8 or t.dim() != 2 or t.device != y.device \
-                or t.stride(1) != 1:
-            raise ValueError(f"{name}: want a uint8 plane with unit column "
-                             f"stride on {y.device}, got {t.dtype} "
-                             f"{tuple(t.shape)} {t.stride()}")
-    if cb.shape != cr.shape or cb.stride() != cr.stride() or \
-            cb.shape[0] < -(-h // vf) or cb.shape[1] < -(-w // hf):
-        raise ValueError(f"chroma planes {tuple(cb.shape)} "
-                         f"{tuple(cr.shape)} too small for ({h}, {w}) at "
-                         f"{hf}x{vf}")
+# The colour kernel's batch table (csrc/jpeg_decode.cu): a descriptor of
+# 12 int64 words an image (y, cb, cr, out pointers, y_pitch, c_pitch, w,
+# h, hf, vf, cw, ch), then a tile of 5 int32 words a block (image, k_lo,
+# k_hi, c_lo, c_rows): the image's 16-pixel groups [k_lo, k_hi) and the
+# chroma rows [c_lo, c_lo + c_rows) they read.
+_GROUP = 16
+_MAX_SMEM_BYTES = 232_448       # shared memory a block may take on an H100
+_SMS = 132                      # SMs on an H100 SXM
+_TILE_GROUPS = (1024, 512, 256)
+
+
+@dataclasses.dataclass(frozen=True)
+class YccBatchPlan:
+    table: np.ndarray     # int64: the descriptors, then the tiles (int32)
+    n_images: int
+    n_tiles: int          # blocks of the launch
+    tile_groups: int      # 16-pixel groups a tile (an image's last tile,
+                          # and those of images too wide for it, hold fewer)
+    smem_bytes: int       # the largest tile's two planes of chroma rows
+
+
+def _tiles(w, h, vf, ch, size) -> np.ndarray:
+    """The tiles of every image, image by image: image ``i``'s groups in
+    runs of ``size[i]`` (its last run shorter), as an int64 (T, 5) array of
+    image, k_lo, k_hi, and the chroma rows the run's pixels read (their
+    own rows and, at h2v2, one more on each side): first and count.  The
+    arguments are int64 arrays, one entry an image."""
+    k_all = -(-w * h // _GROUP)
+    runs = -(-k_all // size)
+    img = np.repeat(np.arange(len(w)), runs)
+    j = np.arange(runs.sum()) - np.repeat(np.cumsum(runs) - runs, runs)
+    w, h, vf, ch, size, k_all = (a[img] for a in (w, h, vf, ch, size, k_all))
+    k_lo = j * size
+    k_hi = np.minimum(k_lo + size, k_all)
+    ra = _GROUP * k_lo // w
+    rb = (np.minimum(_GROUP * k_hi, w * h) - 1) // w
+    c_lo = np.where(vf == 2, np.maximum(ra // 2 - 1, 0), ra)
+    c_hi = np.where(vf == 2, np.minimum(rb // 2 + 1, ch - 1), rb)
+    return np.stack([img, k_lo, k_hi, c_lo, c_hi - c_lo + 1], axis=1)
+
+
+def ycc_batch_plan(images: Sequence[tuple], sms: int = _SMS) -> YccBatchPlan:
+    """The table of one ``ycc_to_rgb`` launch over ``images``, each
+    ``(y_ptr, cb_ptr, cr_ptr, out_ptr, y_pitch, c_pitch, w, h, hf, vf)``.
+
+    Each image's ceil(h w / 16) groups are cut into tiles of
+    ``tile_groups`` groups (the last of an image shorter), in image order;
+    ``tile_groups`` is the largest of 1024, 512, 256 that gives 4 tiles an
+    SM, else 256.  An image whose tiles' two planes of chroma rows would
+    not fit a block's shared memory gets tiles half as long until they
+    do; an image wider than 58,112 pixels, where one group's may not fit,
+    raises ``ValueError``.  Plain Python: the CPU tests check it, and the C
+    entry point checks it again before the launch."""
+    _check_arg(len(images) > 0, "no images")
+    desc = np.asarray(images, np.int64).reshape(len(images), 10)
+    w, h, hf, vf = desc[:, 6:10].T
+    for hw_, vw_ in set(zip(hf.tolist(), vf.tolist())):
+        _check_arg((hw_, vw_) in _SAMPLING.values(),
+                   f"chroma sampling {hw_}x{vw_} is not 4:4:4, 4:2:2 or "
+                   f"4:2:0")
+    _check_arg(bool(((w > 0) & (h > 0) & (w * h < 2 ** 31)).all()),
+               "an image outside 1 .. 2^31 - 1 pixels")
+    cw, ch = -(-w // hf), -(-h // vf)
+    k_all = -(-w * h // _GROUP)
+    tile_groups = next((t for t in _TILE_GROUPS
+                        if int((-(-k_all // t)).sum()) >= 4 * sms),
+                       _TILE_GROUPS[-1])
+    size = np.full(len(images), tile_groups, np.int64)
+    while True:
+        tiles = _tiles(w, h, vf, ch, size)
+        need = 2 * tiles[:, 4] * cw[tiles[:, 0]]
+        over = np.unique(tiles[need > _MAX_SMEM_BYTES, 0])
+        if not over.size or (size[over] == 1).all():
+            break
+        size[over] = np.maximum(size[over] // 2, 1)
+    _check_arg(not over.size, "chroma rows of an image wider than 58,112 "
+               "pixels exceed a block's shared memory")
+    tile_words = tiles.astype(np.int32).reshape(-1)
+    if tile_words.size % 2:
+        tile_words = np.append(tile_words, np.int32(0))
+    table = np.concatenate([np.concatenate([desc, cw[:, None], ch[:, None]],
+                                           axis=1).reshape(-1),
+                            tile_words.view(np.int64)])
+    return YccBatchPlan(table=table, n_images=len(images),
+                        n_tiles=len(tiles), tile_groups=tile_groups,
+                        smem_bytes=max(16, -(-int(need.max()) // 16) * 16))
+
+
+def _check_arg(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def ycc_to_rgb_batch(planes: Sequence[tuple]) -> list[torch.Tensor]:
+    """uint8 (h, w, 3) RGB of decoded colour JPEGs' planes, each ``(y,
+    cb, cr, (hf, vf))`` as :func:`decode_planes` gives it: luma (h, w) and
+    chroma of at least (ceil(h / vf), ceil(w / hf)), subsampled by hf along
+    x and vf along y (4:4:4, 4:2:2 or 4:2:0).  On CUDA tensors one launch
+    of the kernel of ``csrc/jpeg_decode.cu`` converts them all; on CPU
+    tensors the plain version converts each."""
+    if not planes:
+        return []
+    device = planes[0][0].device
+    if device.type != "cuda":
+        return [ycc_to_rgb_plain(y, cb, cr, *sampling)
+                for y, cb, cr, sampling in planes]
+    outs, images = [], []
+    for i, (y, cb, cr, (hf, vf)) in enumerate(planes):
+        for name, t in (("y", y), ("cb", cb), ("cr", cr)):
+            if t.dtype != torch.uint8 or t.dim() != 2 or \
+                    t.device != device or t.stride(1) != 1:
+                raise ValueError(
+                    f"image {i} {name}: want a uint8 plane with unit column "
+                    f"stride on {device}, got {t.dtype} {tuple(t.shape)} "
+                    f"{t.stride()} on {t.device}")
+        h, w = y.shape
+        if cb.shape != cr.shape or cb.stride() != cr.stride() or \
+                cb.shape[0] < -(-h // vf) or cb.shape[1] < -(-w // hf):
+            raise ValueError(f"image {i}: chroma planes {tuple(cb.shape)} "
+                             f"{tuple(cr.shape)} too small for ({h}, {w}) "
+                             f"at {hf}x{vf}")
+        out = torch.empty((h, w, 3), dtype=torch.uint8, device=device)
+        outs.append(out)
+        images.append((y.data_ptr(), cb.data_ptr(), cr.data_ptr(),
+                       out.data_ptr(), y.stride(0), cb.stride(0), w, h, hf,
+                       vf))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = ycc_batch_plan(images, sms)
     lib = LIBRARY.load()
-    out = torch.empty((h, w, 3), dtype=torch.uint8, device=y.device)
-    with torch.cuda.device(y.device):
+    with torch.cuda.device(device):
+        # the host copy is checked by the entry point; the device copy,
+        # made in stream order, is the kernel's
+        host = torch.from_numpy(plan.table).pin_memory()
+        table = host.to(device, non_blocking=True)
         stream = torch.cuda.current_stream().cuda_stream
-        _check(lib, lib.apj_ycc_to_rgb(
-            y.data_ptr(), y.stride(0), cb.data_ptr(), cr.data_ptr(),
-            cb.stride(0), hf, vf, w, h, out.data_ptr(), stream),
-            "ycc_to_rgb launch")
+        _check(lib, lib.apj_ycc_to_rgb_batch(
+            host.data_ptr(), table.data_ptr(), plan.n_images, plan.n_tiles,
+            plan.smem_bytes, stream), "ycc_to_rgb launch")
+    global ycc_images
     with _count_lock:
         launch_counts["ycc_to_rgb"] += 1
-    return out
+        ycc_images += len(outs)
+    return outs
+
+
+def ycc_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
+               hf: int, vf: int) -> torch.Tensor:
+    """:func:`ycc_to_rgb_batch` of one image."""
+    return ycc_to_rgb_batch([(y, cb, cr, (hf, vf))])[0]
 
 
 def _decode_cpu(data: bytes, index: int) -> torch.Tensor:
@@ -301,18 +429,22 @@ def decode_planes(datas: Sequence[bytes], device) -> list[tuple]:
 
 def _decode_cuda(datas: Sequence[bytes], device: torch.device,
                  orientations: Sequence[int]) -> list[torch.Tensor]:
-    global decode_count
+    """nvJPEG's planes of every stream, then one colour-kernel launch for
+    all the colour ones; grayscale streams as three equal channels."""
+    global decode_count, decode_calls
+    planes = decode_planes(datas, device)
+    colour = iter(ycc_to_rgb_batch([p for p in planes if p[3] is not None]))
     out = []
-    for (y, cb, cr, sampling), orientation in zip(
-            decode_planes(datas, device), orientations):
-        if sampling is None:        # grayscale: three equal channels
+    for (y, _, _, sampling), orientation in zip(planes, orientations):
+        if sampling is None:
             h, w = y.shape
             rgb = y[:, :, None].expand(h, w, 3)
         else:
-            rgb = ycc_to_rgb(y, cb, cr, *sampling)
+            rgb = next(colour)
         out.append(orient(rgb, orientation))
     with _count_lock:
         decode_count += len(out)
+        decode_calls += 1
     return out
 
 

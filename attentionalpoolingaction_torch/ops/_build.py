@@ -2,11 +2,13 @@
 
 Each source compiles into a shared library with a plain C interface,
 which is loaded with ``ctypes``: ``csrc/attn_pool.cu`` (the attentional
-pooling kernels) and ``csrc/jpeg_decode.cu`` (the nvJPEG binding) with
-``nvcc`` for ``sm_90a``, ``csrc/tfrecord_index.cc`` (the indexed record
-reader) with the host's C++ compiler.  A library lands in
-``attentionalpoolingaction_torch/_build/`` under a name that carries a hash
-of its source and flags, so an edited source is never served by a stale
+pooling kernels), ``csrc/attn_pool_backward.cu`` (the head's backward; the
+two share ``csrc/attn_pool_common.cuh``) and ``csrc/jpeg_decode.cu`` (the
+nvJPEG binding and the colour kernel) with ``nvcc`` for ``sm_90a``,
+``csrc/tfrecord_index.cc`` (the indexed record reader) with the host's C++
+compiler.  A library lands in ``attentionalpoolingaction_torch/_build/``
+under a name that carries a hash of its source, the headers it includes
+and its flags, so an edited source is never served by a stale
 build.  Nothing is compiled when a module is imported: the first call that
 needs a library builds it, and two builds may run at once (each in its own
 thread, or its own process).
@@ -60,15 +62,18 @@ class NativeLibrary:
     """One source of ``csrc/`` and the library built from it.
 
     ``compiler`` gives the compiler's path; ``flags`` are hashed with the
-    source; ``link_flags(compiler)`` adds flags that depend on where the
-    toolkit lies (library paths), which the hash does not need; ``bind``
-    sets the ``argtypes`` and ``restype`` of every entry point."""
+    source and the ``headers`` it includes; ``link_flags(compiler)`` adds
+    flags that depend on where the toolkit lies (library paths), which the
+    hash does not need; ``bind`` sets the ``argtypes`` and ``restype`` of
+    every entry point."""
 
     def __init__(self, name: str, source: Path, *,
                  compiler: Callable[[], str], flags: tuple[str, ...],
                  bind: Callable[[ctypes.CDLL], ctypes.CDLL],
-                 link_flags: Callable[[str], tuple[str, ...]] = lambda c: ()):
+                 link_flags: Callable[[str], tuple[str, ...]] = lambda c: (),
+                 headers: tuple[Path, ...] = ()):
         self.name, self.source, self.flags = name, Path(source), flags
+        self.headers = tuple(Path(h) for h in headers)
         self._compiler, self._bind, self._link_flags = \
             compiler, bind, link_flags
         self._lock = threading.Lock()
@@ -78,8 +83,9 @@ class NativeLibrary:
         self.build_log = ""
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(self.flags).encode()).hexdigest()
+        digest = hashlib.sha256(
+            b"".join(p.read_bytes() for p in (self.source, *self.headers))
+            + " ".join(self.flags).encode()).hexdigest()
         return BUILD_DIR / f"lib{self.name}-{digest[:16]}.so"
 
     def build(self) -> Path:
@@ -137,6 +143,23 @@ def _bind_attn_pool(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def _bind_attn_pool_backward(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.apb_pool_backward.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i,
+                                      i, i, i, i, i, ctypes.c_longlong, p]
+    lib.apb_pool_backward.restype = i
+    lib.apb_last_active_clusters.argtypes = []
+    lib.apb_last_active_clusters.restype = i
+    lib.apb_error_string.argtypes = [i]
+    lib.apb_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+_COMMON = (CSRC / "attn_pool_common.cuh",)
 ATTN_POOL = NativeLibrary("attn_pool", CSRC / "attn_pool.cu", compiler=nvcc,
-                          flags=NVCC_FLAGS, bind=_bind_attn_pool)
+                          flags=NVCC_FLAGS, bind=_bind_attn_pool,
+                          headers=_COMMON)
+ATTN_POOL_BACKWARD = NativeLibrary(
+    "attn_pool_backward", CSRC / "attn_pool_backward.cu", compiler=nvcc,
+    flags=NVCC_FLAGS, bind=_bind_attn_pool_backward, headers=_COMMON)
 

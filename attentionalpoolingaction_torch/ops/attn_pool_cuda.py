@@ -1,5 +1,6 @@
 """Fused attentional pooling on Hopper: wrappers around the CUDA kernels of
-``csrc/attn_pool.cu``, their plain PyTorch versions and launch counters.
+``csrc/attn_pool.cu`` and ``csrc/attn_pool_backward.cu``, their plain
+PyTorch versions and launch counters.
 
 Port of the JAX package's ``ops/attn_pool_pallas.py``:
 
@@ -18,9 +19,13 @@ is its own kernel whatever the size of ``attn_w``.
 Gradients: :class:`AttentionalPoolFn` runs both kernels in its forward
 and saves ``x, attn_b, sal_w, v, s`` as the JAX package's custom VJP does
 (``_fused_fwd``), with the kernel's (P, F, C) copy of ``attn_w`` in place
-of ``attn_w``.  Its backward, :func:`fused_pool_backward`, mirrors
-``_fused_bwd``: einsums in float32, which the JAX package also computes
-outside any Pallas kernel, so it has no hand-written kernel.
+of ``attn_w``.  Its backward, :func:`fused_pool_backward`, computes
+``_fused_bwd``: two products that are no pass over X (``dv = g A`` and
+``d_attn_w``) as cuBLAS calls, as the JAX package leaves them to XLA, and
+the pass over X (``ds = X dv``, ``d_sal_w = X^T ds``, ``dx``) with the
+small ``g alpha`` and ``d_attn_b`` as the hand-written ``pool_backward``
+kernel, which reads X once; :func:`fused_pool_backward_plain` is its plain
+version, einsums in float32 line for line as ``_fused_bwd``.
 The wrappers themselves take no gradient: called directly under grad on
 CUDA tensors that need one, they raise.
 """
@@ -53,11 +58,13 @@ _PROJ_COLS = 32                 # APA_PROJ_COLS
 _PROJ_STAGE = 32                # APA_PROJ_STAGE
 _PROJ_AROW = 36                 # APA_PROJ_AROW
 _PROJ_MAX_BT = 32               # the longest image tile the kernel takes
+_BWD_STATIC_SMEM = 4 * MAX_RANK  # csrc/attn_pool_backward.cu: dssum[P]
 
 _X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _count_lock = threading.Lock()
-launch_counts = {"saliency_summary": 0, "project_logits": 0}
+launch_counts = {"saliency_summary": 0, "project_logits": 0,
+                 "pool_backward": 0}
 
 
 def reset_launch_counts() -> None:
@@ -112,9 +119,11 @@ def _check_cuda_operands(x: torch.Tensor, *others: torch.Tensor) -> None:
            "accesses")
 
 
-def _raise_if(err: int, what: str) -> None:
+def _raise_if(err: int, what: str, error_string) -> None:
+    """Raise where a C entry point returned a cudaError; ``error_string``
+    is its library's ``ap*_error_string``."""
     if err != 0:
-        msg = _build.ATTN_POOL.load().apa_error_string(err).decode()
+        msg = error_string(err).decode()
         raise RuntimeError(f"{what} launch failed: {msg} (cudaError {err})")
 
 
@@ -151,7 +160,9 @@ def _fill_ctas(sms: int) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
-class SaliencyPlan:
+class ClusterPlan:
+    """The launch plan of a kernel that takes one image over a cluster of
+    CTAs along F: ``saliency_summary`` and ``pool_backward``."""
     cluster: int      # CTAs an image, each owning f_slice columns of F
     f_slice: int
     path: str         # "resident": X read from HBM once; "l2_reread"
@@ -162,42 +173,44 @@ class SaliencyPlan:
 
 def _lane_groups(p: int, vec: int) -> int:
     """16-byte column groups a lane owns in phase 1 (``lane_groups`` in
-    csrc/attn_pool.cu): the most of 4, 2, 1 whose sal_w fits 64
-    registers."""
+    csrc/attn_pool_common.cuh): the most of 4, 2, 1 whose sal_w (or dv)
+    fits 64 registers."""
     return next(j for j in (4, 2, 1) if 64 // (p * vec) >= j or j == 1)
 
 
-def _saliency_smem(n, fs, p, itemsize, resident, r2) -> int:
+def _cluster_smem(n, fs, p, itemsize, resident, r2, pn_buffers) -> int:
+    """``saliency_smem_bytes`` of csrc/attn_pool_common.cuh: X's slice where
+    resident, ``pn_buffers`` (P, N) float buffers (the saliency kernel's
+    partial and summed s; the backward's partial and summed ds and s), the
+    phase-2 row classes."""
     return ((_align16(n * fs * itemsize) if resident else 0)
-            + _align16(2 * p * n * 4) + (r2 * p * fs * 4 if r2 > 1 else 0))
+            + _align16(pn_buffers * p * n * 4)
+            + (r2 * p * fs * 4 if r2 > 1 else 0))
 
 
-def _saliency_r2(n, fs, p, itemsize, resident, vec) -> int:
+def _cluster_r2(n, fs, p, itemsize, resident, vec, pn_buffers,
+                static_bytes) -> int:
     """Most row classes phase 2 can use in the CTA's shared memory; 0 if
     the CTA does not fit.  Where X's slice is resident the CTA takes at
     most half an SM and must hold _SAL_MIN_R2 classes (or all the threads
-    give): phase 2 with fewer is slower than the L2 re-read path."""
+    give): phase 2 with fewer is slower than the L2 re-read path.  The
+    kernel's static shared memory, ``static_bytes``, comes off either
+    budget."""
     most = _SAL_THREADS // (fs // vec)
     if resident:
         budget, least = _RESIDENT_SMEM_BYTES, min(_SAL_MIN_R2, most)
     else:
         budget, least = _MAX_SMEM_BYTES, 1
-    base = _saliency_smem(n, fs, p, itemsize, resident, 1)
+    budget -= static_bytes
+    base = _cluster_smem(n, fs, p, itemsize, resident, 1, pn_buffers)
     r2 = min(most, (budget - base) // (p * fs * 4)) if base <= budget else 0
     if r2 < least:
         return 1 if least == 1 and base <= budget else 0
     return r2
 
 
-def saliency_plan(b: int, n: int, f: int, p: int, x_dtype: torch.dtype,
-                  sms: int = _SMS) -> SaliencyPlan:
-    """Cluster size, F slice, path, row chunks, phase-2 row classes and
-    shared memory of a ``saliency_summary`` launch.
-
-    The cluster is the smallest whose B * S CTAs fill the card (or the
-    largest); a larger one where the X slice, with room for phase 2, would
-    not fit in half an SM's shared memory.  Only where no cluster fits it
-    does the plan take the path whose phase 2 reads X again from L2."""
+def _cluster_plan(b, n, f, p, x_dtype, sms, pn_buffers,
+                  static_bytes=0) -> ClusterPlan:
     itemsize = x_dtype.itemsize
     vec = 16 // itemsize
     max_slice = 32 * _lane_groups(p, vec) * vec
@@ -211,16 +224,40 @@ def saliency_plan(b: int, n: int, f: int, p: int, x_dtype: torch.dtype,
             if s < want:
                 continue
             fs = f // s
-            r2 = _saliency_r2(n, fs, p, itemsize, resident, vec)
+            r2 = _cluster_r2(n, fs, p, itemsize, resident, vec, pn_buffers,
+                             static_bytes)
             if r2:
-                return SaliencyPlan(
+                return ClusterPlan(
                     cluster=s, f_slice=fs,
                     path="resident" if resident else "l2_reread",
                     r2=r2,
-                    smem_bytes=_saliency_smem(n, fs, p, itemsize, resident,
-                                              r2),
+                    smem_bytes=_cluster_smem(n, fs, p, itemsize, resident,
+                                             r2, pn_buffers),
                     grid=b * s)
-    raise ValueError(f"s of {p}x{n} exceeds a CTA's shared memory")
+    raise ValueError(f"{pn_buffers} (P, N) buffers of {p}x{n} exceed a "
+                     f"CTA's shared memory")
+
+
+def saliency_plan(b: int, n: int, f: int, p: int, x_dtype: torch.dtype,
+                  sms: int = _SMS) -> ClusterPlan:
+    """Cluster size, F slice, path, row chunks, phase-2 row classes and
+    shared memory of a ``saliency_summary`` launch.
+
+    The cluster is the smallest whose B * S CTAs fill the card (or the
+    largest); a larger one where the X slice, with room for phase 2, would
+    not fit in half an SM's shared memory.  Only where no cluster fits it
+    does the plan take the path whose phase 2 reads X again from L2."""
+    return _cluster_plan(b, n, f, p, x_dtype, sms, 2)
+
+
+def backward_plan(b: int, n: int, f: int, p: int, x_dtype: torch.dtype,
+                  sms: int = _SMS) -> ClusterPlan:
+    """The plan of a ``pool_backward`` launch, by :func:`saliency_plan`'s
+    rules: the kernel has the saliency kernel's cluster, slices, registers
+    and phase-2 row classes (for d_sal_w), and holds a third (P, N) buffer
+    (s beside the partial and summed ds) and, in static shared memory, the
+    image's dssum (P floats)."""
+    return _cluster_plan(b, n, f, p, x_dtype, sms, 3, _BWD_STATIC_SMEM)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -307,7 +344,7 @@ def saliency_summary(x, sal_w, sal_b):
             sal_b.data_ptr(), v.data_ptr(), s.data_ptr(), b, n, f, p,
             plan.cluster, plan.r2, plan.path == "resident",
             plan.smem_bytes, _stream())
-    _raise_if(err, "saliency_summary")
+    _raise_if(err, "saliency_summary", lib.apa_error_string)
     _count("saliency_summary")
     return v, s
 
@@ -348,7 +385,7 @@ def project_logits(v, s, w_pfc, attn_b):
             v.data_ptr(), s.data_ptr(), w_pfc.data_ptr(), attn_b.data_ptr(),
             logits.data_ptr(), b, n, f, c, p, plan.k_split, plan.k_rows,
             plan.b_tile, plan.a_resident, plan.smem_bytes, _stream())
-    _raise_if(err, "project_logits")
+    _raise_if(err, "project_logits", lib.apa_error_string)
     _count("project_logits")
     return logits
 
@@ -366,7 +403,7 @@ def fused_pool_logits(x, attn_w, attn_b, sal_w, sal_b, *, w_pfc=None):
     return project_logits(v, s, w_pfc, attn_b), v, s
 
 
-def fused_pool_backward(x, w_pfc, attn_b, sal_w, v, s, g):
+def fused_pool_backward_plain(x, w_pfc, attn_b, sal_w, v, s, g):
     """Gradients of the logits for their cotangent ``g`` (B, C):
     ``(dx, d_attn_w, d_attn_b, d_sal_w, d_sal_b)`` from the saved summary
     ``v`` and saliency ``s``.  The JAX package's ``_fused_bwd`` line for
@@ -395,11 +432,66 @@ def fused_pool_backward(x, w_pfc, attn_b, sal_w, v, s, g):
     return dx.to(x.dtype), d_attn_w, d_attn_b, d_sal_w, d_sal_b
 
 
+def fused_pool_backward(x, w_pfc, attn_b, sal_w, v, s, g):
+    """:func:`fused_pool_backward_plain`'s gradients; on CUDA tensors
+    ``dv = g A`` and ``d_attn_w`` are cuBLAS products and the rest (the
+    pass over X, ``g alpha``, ``d_attn_b``) is the ``pool_backward``
+    kernel, whose per-image partials one ``sum(0)`` adds up: 4 launches.
+    x (B, N, F) float32 or bfloat16; w_pfc (P, F, C), attn_b (C, P), sal_w
+    (F, P), v (B, P, F), s (B, P, N) and g (B, C) float32.  ``dx`` comes
+    back in x's dtype, the rest in float32."""
+    _check(x.ndim == 3, f"x must be (B, N, F), got {tuple(x.shape)}")
+    _check(x.dtype in _X_DTYPES,
+           f"x must be float32 or bfloat16, got {x.dtype}", TypeError)
+    b, n, f = x.shape
+    _check(w_pfc.ndim == 3, f"w_pfc must be (P, F, C), got "
+           f"{tuple(w_pfc.shape)}")
+    p, c = w_pfc.shape[0], w_pfc.shape[2]
+    _check(1 <= p <= MAX_RANK, f"rank {p} outside 1..{MAX_RANK}")
+    _check_f32("w_pfc", w_pfc, (p, f, c))
+    _check_f32("attn_b", attn_b, (c, p))
+    _check_f32("sal_w", sal_w, (f, p))
+    _check_f32("v", v, (b, p, f))
+    _check_f32("s", s, (b, p, n))
+    _check_f32("g", g, (b, c))
+    if x.device.type == "cpu":
+        return fused_pool_backward_plain(x, w_pfc, attn_b, sal_w, v, s, g)
+    _check(x.is_cuda, f"no kernel for device {x.device}")
+    # autograd may hand over an expanded cotangent (the gradient of a sum)
+    g = g.contiguous()
+    _check_cuda_operands(x, w_pfc, attn_b, sal_w, v, s, g)
+    _check(f % 8 == 0, f"F={f} must be a multiple of 8 (16-byte loads)")
+    _check(n >= 1, "x has no positions")
+    plan = backward_plan(b, n, f, p, x.dtype, _sms(x.device))
+    dv = (g @ w_pfc.reshape(p * f, c).t()).reshape(b, p, f)
+    d_attn_w = torch.einsum("bpf,bc->fcp", v, g)
+    dx = torch.empty_like(x, memory_format=torch.contiguous_format)
+    # each image's d_sal_w (F, P), d_sal_b (P) and d_attn_b (C, P), summed
+    # over B below
+    fp = f * p
+    red = torch.empty((b, fp + p + c * p), dtype=torch.float32,
+                      device=x.device)
+    if b > 0:
+        lib = _build.ATTN_POOL_BACKWARD.load()
+        with torch.cuda.device(x.device):
+            err = lib.apb_pool_backward(
+                x.data_ptr(), _X_DTYPES[x.dtype], dv.data_ptr(),
+                s.data_ptr(), g.data_ptr(), attn_b.data_ptr(),
+                sal_w.data_ptr(), dx.data_ptr(), red.data_ptr(), b, n, f, c,
+                p, plan.cluster, plan.r2, plan.path == "resident",
+                plan.smem_bytes, _stream())
+        _raise_if(err, "pool_backward", lib.apb_error_string)
+        _count("pool_backward")
+    total = red.sum(dim=0)
+    return (dx, d_attn_w, total[fp + p:].view(c, p), total[:fp].view(f, p),
+            total[fp:fp + p])
+
+
 class AttentionalPoolFn(torch.autograd.Function):
     """Logits (B, C) of the fused pooling, differentiable in ``x`` and the
     four weights: the forward is :func:`saliency_summary` then
-    :func:`project_logits` (the kernels on CUDA tensors), the backward
-    :func:`fused_pool_backward`.  ``w_pfc``, :func:`attn_w_pfc` of
+    :func:`project_logits`, the backward :func:`fused_pool_backward` (the
+    kernels on CUDA tensors).  ``w_pfc``, :func:`attn_w_pfc` of
     ``attn_w``, takes no gradient; both passes read ``attn_w`` through it,
     so ``attn_w`` is an input only to receive its gradient."""
 

@@ -27,9 +27,13 @@ Phases; any failure raises and the process exits non-zero:
    once per dispatch, and the logits of 2 images against the CPU plain
    path; prints images/s and the median and p90 time of a call at each
    bucket.
-   Phase 2 also holds the gradients of ``AttentionalPoolFn`` (the kernels'
-   forward, ``fused_pool_backward``) against torch autograd through the
-   plain forward at every case, and times the backward beside it.
+   Phase 2 also holds the head's backward (``fused_pool_backward``, whose
+   pass over X is the ``pool_backward`` kernel of
+   csrc/attn_pool_backward.cu) against its plain version (torch ops) and
+   the gradients of ``AttentionalPoolFn`` against torch autograd through
+   the plain forward at every case, checks that two backwards give the
+   same bits, and times the backward, the kernel alone, the plain version
+   and autograd.
 4. Training: the ``mpii_rank1_224`` preset at full width (ResNet-101,
    224 px, batch 8, float32, BN in train mode, staircase exponential
    schedule, SGD momentum, clip 10) from seeded random weights in the Flax
@@ -65,6 +69,9 @@ Phases; any failure raises and the process exits non-zero:
    crop is held against the JAX pipeline's golden crop (OpenCV decode +
    ``preprocess_decoded_np``, made on a host with OpenCV): mean |d| <= 1.5
    levels, at most 1% of pixels off by more than 8, the transform equal.
+   The colour kernel converts every colour fixture in one launch, each
+   image bit for bit against its plain version, and is timed over batches
+   of 1, 8 and 16 of the 1280x720 4:2:0 fixtures beside its bound.
    512 train and 48 eval records are written from the fixtures (seeded
    labels and keypoints) and indexed; ``train_cli`` trains 12 steps
    (checkpoints every 4, an eval every 6, the best kept) and ``eval_cli``
@@ -127,7 +134,8 @@ Phases; any failure raises and the process exits non-zero:
    subprocess (float and ``--int8``), and an ``hmdb51_clip8`` int8 clip
    through ``predict_clip_bytes``.
 9. A ``kernels`` JSON line (``launches`` from phase 3's serving run for
-   the pooling kernels and from phase 6's ``train_cli`` for the colour
+   the forward pooling kernels, from phase 4's ``train`` for
+   ``pool_backward`` and from phase 6's ``train_cli`` for the colour
    kernel; ``train_launches`` from phase 4's ``train``, ``eval_launches``
    from phase 5's evaluation, ``pipeline_train_launches`` and
    ``pipeline_eval_launches`` from phase 6's CLIs, one column each for
@@ -136,9 +144,9 @@ Phases; any failure raises and the process exits non-zero:
    ``clip8_int8_serve_launches`` from phase 8's, each kernel counted over
    each run), then the last line ``{"ok": true, "device": {...}}``.
 
-The kernels (``csrc/attn_pool.cu``, ``csrc/jpeg_decode.cu`` with ``nvcc``,
-``csrc/tfrecord_index.cc`` with the host compiler) build at once, each in
-its own thread, before phase 2.
+The kernels (``csrc/attn_pool.cu``, ``csrc/attn_pool_backward.cu``,
+``csrc/jpeg_decode.cu`` with ``nvcc``, ``csrc/tfrecord_index.cc`` with the
+host compiler) build at once, each in its own thread, before phase 2.
 
 ``--profile`` adds a torch.profiler breakdown of a call at each bucket, of
 one training step, of a pipelined pass of phase 5's eval loop, in phase
@@ -267,6 +275,9 @@ EVAL_ACC_ATOL = 1 / 40 + 1e-9
 SERVE_PROB_ATOL = 1e-4
 GRAD_NAMES = ("x", "attn_w", "attn_b", "sal_w", "sal_b")
 SOURCE = "attentionalpoolingaction_torch/csrc/attn_pool.cu"
+BACKWARD_SOURCE = "attentionalpoolingaction_torch/csrc/attn_pool_backward.cu"
+# no TPU kernel: the JAX package's backward is jnp einsums (_fused_bwd)
+BACKWARD_REPLACES = "attentionalpoolingaction_tpu/ops/attn_pool_pallas.py:316"
 JPEG_SOURCE = "attentionalpoolingaction_torch/csrc/jpeg_decode.cu"
 # no TPU kernel: the JAX package decodes on the host (cv2.imdecode)
 JPEG_REPLACES = "attentionalpoolingaction_tpu/data/preprocessing_np.py:17"
@@ -377,7 +388,8 @@ def library_fused(x, sal_w, sal_b, w_pfc, attn_b):
 def build_libraries():
     """Build every native library of the port at once, one thread each (a
     compiler process each), and raise the first failure."""
-    libs = [_build.ATTN_POOL, jpeg.LIBRARY, native_io.LIBRARY]
+    libs = [_build.ATTN_POOL, _build.ATTN_POOL_BACKWARD, jpeg.LIBRARY,
+            native_io.LIBRARY]
     times, errors = {}, []
 
     def build(lib):
@@ -403,9 +415,10 @@ def build_libraries():
 
 def phase_kernels(timer):
     pool_lib = _build.ATTN_POOL.load()
-    for line in _build.ATTN_POOL.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log("  nvcc:", line.strip())
+    for lib in (_build.ATTN_POOL, _build.ATTN_POOL_BACKWARD):
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"  nvcc {lib.name}:", line.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
     log("torch.backends.cuda.matmul.allow_tf32 = False (plain and library "
         "versions in full float32)")
@@ -511,22 +524,32 @@ def phase_kernels(timer):
                         f"{name} disagrees with its plain version at "
                         f"{row['case']}: relative error {rel:.2e} >= "
                         f"{KERNEL_RTOL}")
-        check_backward(timer, a, w_pfc, (b, n, f, c, p, dt), i)
+        rows.append(check_backward(timer, a, w_pfc, (b, n, f, c, p, dt), i))
     return rows
 
 
 def check_backward(timer, a, w_pfc, case, seed):
-    """AttentionalPoolFn's gradients (the kernels' forward, then
-    fused_pool_backward) against torch autograd through the plain
-    forward, on the same inputs and cotangent; the backward's time beside
-    the plain autograd's."""
+    """The head's backward at one phase-2 case.  AttentionalPoolFn's
+    gradients (the kernels' forward, then fused_pool_backward) against
+    torch autograd through the plain forward, on the same inputs and
+    cotangent; fused_pool_backward (the pool_backward kernel and its
+    cuBLAS products) against fused_pool_backward_plain (torch ops) on the
+    same saved tensors, and two backwards bit for bit.  Times the backward,
+    the kernel alone, the plain version and plain autograd, beside the
+    bound; returns the row."""
     b, n, f, c, p, dt = case
     g = torch.randn(b, c, device="cuda",
                     generator=torch.Generator("cuda").manual_seed(seed))
     fn_in = {k: a[k].detach().clone().requires_grad_() for k in GRAD_NAMES}
+    apc.reset_launch_counts()
     logits = apc.attentional_pool_fused(*(fn_in[k] for k in GRAD_NAMES),
                                         w_pfc=w_pfc)
     logits.backward(g)
+    torch.cuda.synchronize()
+    if apc.launch_counts != {"saliency_summary": 1, "project_logits": 1,
+                             "pool_backward": 1}:
+        raise AssertionError(f"AttentionalPoolFn forward and backward at "
+                             f"B{b} N{n}: launches {apc.launch_counts}")
     plain_in = {k: a[k].detach().clone().requires_grad_()
                 for k in GRAD_NAMES}
     pv, ps = apc.saliency_summary_plain(plain_in["x"], plain_in["sal_w"],
@@ -534,35 +557,96 @@ def check_backward(timer, a, w_pfc, case, seed):
     plain_logits = apc.project_logits_plain(
         pv, ps, plain_in["attn_w"].permute(2, 0, 1), plain_in["attn_b"])
     plain_logits.backward(g, retain_graph=True)
+
+    def tol_of(k):
+        return BF16_DX_RTOL if k == "x" and dt == torch.bfloat16 \
+            else KERNEL_RTOL
+
     worst = 0.0
     for k in GRAD_NAMES:
         rel, _ = rel_err(fn_in[k].grad.float(), plain_in[k].grad.float())
-        tol = BF16_DX_RTOL if k == "x" and dt == torch.bfloat16 \
-            else KERNEL_RTOL
-        if not rel < tol:
+        if not rel < tol_of(k):
             raise AssertionError(
                 f"d{k} of AttentionalPoolFn disagrees with autograd at B{b} "
-                f"N{n} C{c} P{p} {dt}: relative error {rel:.2e} >= {tol}")
+                f"N{n} C{c} P{p} {dt}: relative error {rel:.2e} >= "
+                f"{tol_of(k)}")
         worst = max(worst, rel)
+    x, sw, ab = a["x"], a["sal_w"], a["attn_b"]
     with torch.no_grad():
-        v, s = apc.saliency_summary(a["x"], a["sal_w"], a["sal_b"])
-    ms = timer(lambda: apc.fused_pool_backward(
-        a["x"], w_pfc, a["attn_b"], a["sal_w"], v, s, g))
+        v, s = apc.saliency_summary(x, sw, a["sal_b"])
+    args = (x, w_pfc, ab, sw, v, s, g)
+    got = apc.fused_pool_backward(*args)
+    again = apc.fused_pool_backward(*args)
+    want = apc.fused_pool_backward_plain(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(u, w) for u, w in zip(got, again)):
+        raise AssertionError(f"two backwards at B{b} N{n} C{c} P{p} {dt} "
+                             f"gave different bits")
+    kern_rel, kern_abs = 0.0, 0.0
+    for k, u, w in zip(GRAD_NAMES, got, want):
+        rel, absd = rel_err(u.float(), w.float())
+        if not rel < tol_of(k):
+            raise AssertionError(
+                f"d{k} of pool_backward disagrees with its plain version "
+                f"at B{b} N{n} C{c} P{p} {dt}: relative error {rel:.2e} >= "
+                f"{tol_of(k)}")
+        kern_rel, kern_abs = max(kern_rel, rel), max(kern_abs, absd)
+
+    # the kernel alone, on dv = g A
+    plan = apc.backward_plan(b, n, f, p, dt)
+    dv = (g @ w_pfc.reshape(p * f, c).t()).reshape(b, p, f)
+    dx = torch.empty_like(x)
+    red = torch.empty((b, f * p + p + c * p), device="cuda")
+    blib = _build.ATTN_POOL_BACKWARD.load()
+
+    def kernel():
+        err = blib.apb_pool_backward(
+            x.data_ptr(), apc._X_DTYPES[dt], dv.data_ptr(), s.data_ptr(),
+            g.data_ptr(), ab.data_ptr(), sw.data_ptr(), dx.data_ptr(),
+            red.data_ptr(), b, n, f, c, p, plan.cluster, plan.r2,
+            plan.path == "resident", plan.smem_bytes,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"pool_backward: cudaError {err}")
+
+    kernel()
+    active = blib.apb_last_active_clusters()
+    ms = timer(lambda: apc.fused_pool_backward(*args))
+    kernel_ms = timer(kernel)
+    plain_ms = timer(lambda: apc.fused_pool_backward_plain(*args))
     leaves = [plain_in[k] for k in GRAD_NAMES]
-    plain_ms = timer(lambda: torch.autograd.grad(plain_logits, leaves, g,
-                                                 retain_graph=True))
-    # reads x, v, s, g, A (P, F, C), attn_b and sal_w once; writes dx (in
-    # x's dtype) and the four weight gradients once
-    xs = a["x"].element_size()
+    autograd_ms = timer(lambda: torch.autograd.grad(
+        plain_logits, leaves, g, retain_graph=True))
+    # the backward reads x, v, s, g, A (P, F, C), attn_b and sal_w once and
+    # writes dx (in x's dtype) and the four weight gradients once
+    xs = x.element_size()
     nbytes = 2 * b * n * f * xs + 4 * (b * p * f + b * p * n + b * c
                                        + 2 * p * f * c + 2 * c * p
                                        + 2 * f * p + p)
     flops = 4 * b * p * f * c + 8 * b * n * f * p + 4 * b * c * p
     bms, by = bound_ms(nbytes, flops)
-    log(f"B{b:<3} N{n:<4} C{c:<4} P{p} {str(dt).removeprefix('torch.'):<9}"
-        f"{'backward':<18}{worst:<10.2e}{ms:<9.4f}{plain_ms:<10.4f}"
-        f"{'-':<10}{bms:<10.4f}{bms / ms:.1%} (torch ops; plain = autograd "
-        f"of the plain forward; bound by {by})")
+    # the kernel reads x, dv, s, g, attn_b and sal_w and writes dx and its
+    # (B, F P + P + C P) partials
+    kbms, _ = bound_ms(2 * b * n * f * xs + 4 * (
+        b * p * f + b * p * n + b * c + c * p + f * p
+        + b * (f * p + p + c * p)), 8 * b * n * f * p)
+    row = {"case": {"B": b, "N": n, "F": f, "C": c, "P": p,
+                    "x": str(dt).removeprefix("torch.")},
+           "name": "pool_backward", "rel_err": kern_rel,
+           "max_abs_err": kern_abs, "autograd_rel_err": worst, "ms": ms,
+           "plain_ms": plain_ms, "autograd_ms": autograd_ms,
+           "library_ms": None, "bound_ms": bms, "bound_by": by,
+           "bound_share": bms / ms, "kernel_ms": kernel_ms,
+           "kernel_bound_ms": kbms, "kernel_bound_share": kbms / kernel_ms}
+    log(f"B{b:<3} N{n:<4} C{c:<4} P{p} {row['case']['x']:<9}"
+        f"{'backward':<18}{kern_rel:<10.2e}{ms:<9.4f}{plain_ms:<10.4f}"
+        f"{'-':<10}{bms:<10.4f}{bms / ms:.1%} (plain = torch ops; autograd "
+        f"of the plain forward {autograd_ms:.4f} ms, error {worst:.2e}; "
+        f"bound by {by}); kernel alone {kernel_ms:.4f} ms, bound "
+        f"{kbms:.4f} ({kbms / kernel_ms:.1%}); plan cluster {plan.cluster} "
+        f"x {plan.f_slice} columns, {plan.path}, r2 {plan.r2}, "
+        f"{plan.smem_bytes} B, {active} clusters at once")
+    return row
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -620,7 +704,8 @@ def phase_serving(card):
         f" coalesced batches; predict_arrays(40): 2 chunks; "
         f"{dispatches} dispatches; launches {launches}")
     if launches != {"saliency_summary": dispatches,
-                    "project_logits": dispatches} or dispatches < 3:
+                    "project_logits": dispatches,
+                    "pool_backward": 0} or dispatches < 3:
         raise AssertionError(
             f"kernel launches {launches} != forward dispatches {dispatches}")
 
@@ -860,7 +945,8 @@ def phase_training(card):
     log(f"train.train: 8 steps from the seed-{cfg.seed} init in {wall:.1f} s "
         f"(state built included); history {history}; launches {launches}")
     # numpy batches handed to the step: nothing is decoded
-    expect_launches("train.train over 8 steps", launches, 8, ycc=0)
+    expect_launches("train.train over 8 steps", launches, 8, ycc=0,
+                    backward=8)
     if not all(np.isfinite(v) for h in history for v in h.values()):
         raise AssertionError(f"non-finite metrics {history}")
     if not all(torch.isfinite(p).all() for p in state.model.parameters()):
@@ -891,9 +977,10 @@ def phase_training_small():
         _, card_m = step(card_state, train.batch_to_device(batch, "cuda"))
         torch.cuda.synchronize()
         launches = dict(apc.launch_counts)
-        if launches != {"saliency_summary": 2, "project_logits": 2}:
+        if launches != {"saliency_summary": 2, "project_logits": 2,
+                        "pool_backward": 2}:
             raise AssertionError(f"graft step {i + 1}: launches {launches}, "
-                                 "want 2 and 2 (two microbatches)")
+                                 "want 2 of each (two microbatches)")
         _, cpu_m = step(cpu_state, train.batch_to_device(batch, "cpu"))
         compare_step(f"graft config step {i + 1}", before,
                      train_snapshot(card_state), train_snapshot(cpu_state),
@@ -992,7 +1079,8 @@ def state_tensors(state):
 def counted(fn):
     """``fn()``'s result and the kernel launches it made, the pooling
     kernels' and the colour kernel's (counts set to 0 just before, read
-    after a synchronize).  ``jpeg.decode_count`` is reset with them."""
+    after a synchronize).  ``jpeg.decode_count``, ``jpeg.decode_calls``
+    and ``jpeg.ycc_images`` are reset with them."""
     apc.reset_launch_counts()
     jpeg.reset_counts()
     result = fn()
@@ -1000,14 +1088,18 @@ def counted(fn):
     return result, {**apc.launch_counts, **jpeg.launch_counts}
 
 
-def expect_launches(what, launches, n, ycc=None):
-    """Each pooling kernel launched ``n`` times, and the colour kernel
-    ``ycc`` times unless that is None."""
-    pooling = {k: launches[k] for k in ("saliency_summary", "project_logits")}
-    if pooling != {"saliency_summary": n, "project_logits": n} or (
+def expect_launches(what, launches, n, ycc=None, backward=0):
+    """Each forward pooling kernel launched ``n`` times, the backward
+    ``backward`` times (once a train step), and the colour kernel ``ycc``
+    times unless that is None."""
+    pooling = {k: launches[k] for k in ("saliency_summary", "project_logits",
+                                        "pool_backward")}
+    if pooling != {"saliency_summary": n, "project_logits": n,
+                   "pool_backward": backward} or (
             ycc is not None and launches["ycc_to_rgb"] != ycc):
         raise AssertionError(f"{what}: kernel launches {launches}, want {n} "
-                             f"of each pooling kernel"
+                             f"of each forward pooling kernel, {backward} "
+                             f"backward"
                              + ("" if ycc is None else f", {ycc} colour"))
 
 
@@ -1103,7 +1195,8 @@ def phase_checkpointed_run(card, profile=False):
         if live.step != 3 or mgr.all_steps() != [2, 3]:
             raise AssertionError(f"SIGTERM at step 3: stopped at "
                                  f"{live.step}, steps {mgr.all_steps()}")
-        expect_launches("train.train to the SIGTERM", launches, 3)
+        expect_launches("train.train to the SIGTERM", launches, 3,
+                        backward=3)
         fresh, _ = train.create_state(cfg, device="cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1135,7 +1228,8 @@ def phase_checkpointed_run(card, profile=False):
         if state.step != 6 or mgr.all_steps() != [4, 6]:
             raise AssertionError(f"resume: at step {state.step}, steps "
                                  f"{mgr.all_steps()}, want 6 and [4, 6]")
-        expect_launches("train.train resumed 3 -> 6", launches, 3)
+        expect_launches("train.train resumed 3 -> 6", launches, 3,
+                        backward=3)
         history = hist1 + hist2
         if [h["step"] for h in history] != list(range(1, 7)) or not all(
                 np.isfinite(v) for h in history for v in h.values()):
@@ -1251,7 +1345,8 @@ def phase_checkpointed_run(card, profile=False):
         (state, _), launches = counted(lambda: train.train(
             run_cfg, train_iter=iter(batches[6:]), num_steps=7,
             device="cuda", checkpoint_manager=mgr))
-        expect_launches("train.train resumed 6 -> 7", launches, 1)
+        expect_launches("train.train resumed 6 -> 7", launches, 1,
+                        backward=1)
         swapped, again = follower.poll_once(), follower.poll_once()
         if not swapped or again or pred.step != 7:
             raise AssertionError(f"follower: swapped {swapped}, again "
@@ -1316,40 +1411,100 @@ def fixture_geometry(kind, i, data):
 
 
 def check_colour_kernel(timer, names, datas):
-    """The colour kernel (libjpeg's chroma upsampling and YCbCr -> RGB)
-    against its plain version on nvJPEG's planes of every colour fixture,
-    bit for bit; timed at the first (MPII's 1280x720, 4:2:0)."""
-    row = None
-    for name, (y, cb, cr, sampling) in zip(
-            names, jpeg.decode_planes(datas, "cuda")):
-        if sampling is None:
-            continue
-        got = jpeg.ycc_to_rgb(y, cb, cr, *sampling)
+    """The colour kernel (libjpeg's chroma upsampling and YCbCr -> RGB) in
+    one launch over nvJPEG's planes of every colour fixture, each image
+    bit for bit against its plain version; timed over batches of 1, 8 and
+    16 of the 1280x720 4:2:0 fixtures (MPII's size), beside the bound."""
+    colour = [(name, pl) for name, pl in zip(
+        names, jpeg.decode_planes(datas, "cuda")) if pl[3] is not None]
+    planes = [pl for _, pl in colour]
+    got, launches = counted(lambda: jpeg.ycc_to_rgb_batch(planes))
+    if launches["ycc_to_rgb"] != 1 or jpeg.ycc_images != len(planes):
+        raise AssertionError(f"ycc_to_rgb_batch of {len(planes)} images: "
+                             f"launches {launches}, {jpeg.ycc_images} "
+                             f"converted")
+    err = 0
+    for (name, (y, cb, cr, sampling)), rgb in zip(colour, got):
         want = jpeg.ycc_to_rgb_plain(y, cb, cr, *sampling)
-        err = int((got.int() - want.int()).abs().max())
+        d = int((rgb.int() - want.int()).abs().max())
         log(f"ycc_to_rgb vs plain, {name} {tuple(y.shape)} chroma "
-            f"{tuple(cb.shape)} at {sampling[0]}x{sampling[1]}: max |d| {err}"
+            f"{tuple(cb.shape)} at {sampling[0]}x{sampling[1]}: max |d| {d}"
             f" (tolerance 0)")
-        if err:
+        if d:
             raise AssertionError(f"ycc_to_rgb disagrees with its plain "
-                                 f"version on {name}: {err}")
-        if row is None:
+                                 f"version on {name}: {d}")
+        err = max(err, d)
+    mpii = [pl for _, pl in colour
+            if pl[0].shape == (720, 1280) and pl[3] == (2, 2)]
+    if not mpii:
+        raise AssertionError("no 1280x720 4:2:0 fixture")
+    lib = jpeg.LIBRARY.load()
+    batches = {}
+    for n in (1, 8, 16):
+        batch = [mpii[i % len(mpii)] for i in range(n)]
+        nbytes = ops = 0
+        for y, cb, cr, (hf, vf) in batch:
             h, w = y.shape
-            cw, ch = -(-w // sampling[0]), -(-h // sampling[1])
+            cw, ch = -(-w // hf), -(-h // vf)
             # reads Y and both chroma planes once, writes RGB once; ~30
             # integer operations a pixel on the CUDA cores
-            bms, by = bound_ms(h * w + 2 * cw * ch + 3 * h * w, 30 * h * w)
-            row = {"shape": [h, w], "sampling": list(sampling),
-                   "max_abs_err": err,
-                   "ms": timer(lambda: jpeg.ycc_to_rgb(y, cb, cr, *sampling)),
-                   "plain_ms": timer(lambda: jpeg.ycc_to_rgb_plain(
-                       y, cb, cr, *sampling)),
-                   "bound_ms": bms, "bound_by": by, "library_ms": None}
-            row["bound_share"] = bms / row["ms"]
-            log(f"ycc_to_rgb {h}x{w}: {row['ms']:.4f} ms, plain "
-                f"{row['plain_ms']:.4f} ms, bound {bms:.4f} ms ({by}), "
-                f"{row['bound_share']:.1%} of it")
-    return row
+            nbytes += h * w + 2 * cw * ch + 3 * h * w
+            ops += 30 * h * w
+        bms, by = bound_ms(nbytes, ops)
+        # the launch alone, on a table made once; the wrapper packs and
+        # copies the table on every call
+        outs = [torch.empty((*y.shape, 3), dtype=torch.uint8, device="cuda")
+                for y, _, _, _ in batch]
+        plan = jpeg.ycc_batch_plan(
+            [(y.data_ptr(), cb.data_ptr(), cr.data_ptr(), o.data_ptr(),
+              y.stride(0), cb.stride(0), y.shape[1], y.shape[0], *sampling)
+             for (y, cb, cr, sampling), o in zip(batch, outs)])
+        host = torch.from_numpy(plan.table).pin_memory()
+        table = host.cuda()
+
+        def launch():
+            err = lib.apj_ycc_to_rgb_batch(
+                host.data_ptr(), table.data_ptr(), plan.n_images,
+                plan.n_tiles, plan.smem_bytes,
+                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"ycc_to_rgb launch: error {err}")
+
+        launch()
+        if not all(torch.equal(o, r) for o, r in
+                   zip(outs, jpeg.ycc_to_rgb_batch(batch))):
+            raise AssertionError("the launch alone and ycc_to_rgb_batch "
+                                 "differ")
+        host_s = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            jpeg.ycc_to_rgb_batch(batch)
+            host_s.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        row = {"images": n, "shape": [720, 1280], "sampling": [2, 2],
+               "ms": timer(launch),
+               "call_ms": timer(lambda: jpeg.ycc_to_rgb_batch(batch)),
+               "host_ms": float(np.median(host_s)) * 1e3,
+               "plain_ms": timer(lambda: [jpeg.ycc_to_rgb_plain(
+                   y, cb, cr, *sm) for y, cb, cr, sm in batch]),
+               "bound_ms": bms, "bound_by": by, "tiles": plan.n_tiles,
+               "tile_groups": plan.tile_groups}
+        row["bound_share"] = bms / row["ms"]
+        batches[n] = row
+        log(f"ycc_to_rgb, a batch of {n} 1280x720 4:2:0: the launch "
+            f"{row['ms']:.4f} ms ({row['ms'] / n:.4f} an image), bound "
+            f"{bms:.4f} ms ({by}), {row['bound_share']:.1%} of it; "
+            f"{plan.n_tiles} tiles of {plan.tile_groups} groups; "
+            f"ycc_to_rgb_batch {row['call_ms']:.4f} ms on the card (the "
+            f"table's copy included), {row['host_ms']:.4f} ms on the host a "
+            f"call; plain {row['plain_ms']:.4f} ms")
+    main_row = batches[16]
+    return {"max_abs_err": err, "ms": main_row["ms"],
+            "call_ms": main_row["call_ms"], "host_ms": main_row["host_ms"],
+            "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"], "library_ms": None,
+            "bound_share": main_row["bound_share"], "images": 16,
+            "batches": batches}
 
 
 def check_decode(names, datas, crops, transforms):
@@ -1438,6 +1593,20 @@ def read_scalars(workdir):
     return out
 
 
+def check_colour_launches(what, launches, decoded, calls, converted, least):
+    """The colour kernel launched once a ``decode()`` call that held a
+    colour image: at least once, at most once a call, and fewer times than
+    it converted images (a call hands over a batch); ``least`` images
+    decoded at least, each colour one converted once."""
+    ycc = launches["ycc_to_rgb"]
+    if decoded < least or not 0 < ycc <= calls or not ycc < converted or \
+            converted > decoded:
+        raise AssertionError(
+            f"{what}: {decoded} images decoded on the card in {calls} "
+            f"decode() calls (want >= {least} images); the colour kernel "
+            f"launched {ycc} times for {converted} colour images")
+
+
 def run_clis(paths, run_dir):
     """train_cli for 12 steps (checkpoints every 4, an eval every 6), then
     eval_cli of the last step; launches counted over each."""
@@ -1450,9 +1619,10 @@ def run_clis(paths, run_dir):
     state, launches = counted(lambda: train_cli.main(args))
     out["train_cli_s"] = time.perf_counter() - t0
     out["train_cli_decoded"] = jpeg.decode_count
+    decode_calls, converted = jpeg.decode_calls, jpeg.ycc_images
     # 12 steps, and two evaluations of the 48 eval records in 6 batches
     expect_launches("train_cli: 12 steps, 2 evals of 6 batches", launches,
-                    12 + 2 * 6)
+                    12 + 2 * 6, backward=12)
     out["pipeline_train_launches"] = launches
     mgr = checkpoint.make_manager(os.path.join(run_dir, "checkpoints"))
     iter_state = json.loads(
@@ -1465,12 +1635,11 @@ def run_clis(paths, run_dir):
         raise AssertionError(f"train_cli: step {state.step}, steps "
                              f"{mgr.all_steps()}, stream {iter_state}, best "
                              f"{best}")
-    # 96 train images and 96 eval images at least (the prefetch reads on)
-    if out["train_cli_decoded"] < 192 or not \
-            0 < launches["ycc_to_rgb"] <= out["train_cli_decoded"]:
-        raise AssertionError(f"{out['train_cli_decoded']} images decoded "
-                             f"on the card, want >= 192; colour kernel "
-                             f"launched {launches['ycc_to_rgb']} times")
+    # 96 train images and 96 eval images at least (the prefetch reads on);
+    # the colour kernel once a decode() call (a batch handed out: 8 train
+    # or 16 eval records, one grayscale fixture in 7)
+    check_colour_launches("train_cli", launches, out["train_cli_decoded"],
+                          decode_calls, converted, least=192)
     del state
     t0 = time.perf_counter()
     printed, launches = counted(lambda: eval_cli.main([
@@ -1479,9 +1648,9 @@ def run_clis(paths, run_dir):
     out["eval_cli_s"] = time.perf_counter() - t0
     expect_launches("eval_cli: 6 batches", launches, 6)
     out["pipeline_eval_launches"] = launches
-    if not 0 < launches["ycc_to_rgb"] <= N_EVAL_RECORDS:
-        raise AssertionError(f"colour kernel launched "
-                             f"{launches['ycc_to_rgb']} times over the eval")
+    check_colour_launches("eval_cli", launches, jpeg.decode_count,
+                          jpeg.decode_calls, jpeg.ycc_images,
+                          least=N_EVAL_RECORDS)
     line = printed[-1]
     if set(line) != EVAL_KEYS or line["step"] != 12 or \
             line["num_examples"] != 48:
@@ -2169,7 +2338,8 @@ def train_from_records(name, paths, run_dir, steps, **overrides):
     (state, hist), launches = counted(lambda: train.train(
         cfg, num_steps=steps, device="cuda", checkpoint_manager=mgr))
     wall = time.perf_counter() - t0
-    expect_launches(f"{name} train.train, {steps} steps", launches, steps)
+    expect_launches(f"{name} train.train, {steps} steps", launches, steps,
+                    backward=steps)
     losses = [h["loss/total"] for h in hist]
     if state.step != steps or len(losses) != steps or \
             not np.isfinite(losses).all():
@@ -2282,7 +2452,7 @@ def phase_hmdb(card, datas, workdir):
         "checkpoint_every=3", "--set", "log_every=1", "--set",
         f"init_checkpoint={init!r}"]))
     wall = time.perf_counter() - t0
-    expect_launches(f"{name} train_cli: 3 steps", launches, 3)
+    expect_launches(f"{name} train_cli: 3 steps", launches, 3, backward=3)
     stream = json.loads((pathlib.Path(run_dir) / "checkpoints"
                          / "grain_iter_3_p0.json").read_text())
     if state.step != 3 or stream != {"epoch": 2, "position": 32}:
@@ -2545,6 +2715,7 @@ def check_http(pred, names, datas, crops, png_data, bound):
             wall = time.perf_counter() - t0
             n_disp = int(dispatches(pred) - d0)
             decoded = jpeg.decode_count
+            decode_calls, converted = jpeg.decode_calls, jpeg.ycc_images
 
             def short(i):
                 c = http_conn(srv.port)
@@ -2578,10 +2749,13 @@ def check_http(pred, names, datas, crops, png_data, bound):
     finally:
         torch.backends.cudnn.allow_tf32 = True
     expect_launches("HTTP serving", launches, n_disp)
-    if not 0 < launches["ycc_to_rgb"] <= decoded:
+    # a request's image is decoded alone: one launch a colour JPEG
+    if not 0 < launches["ycc_to_rgb"] == converted <= decode_calls <= \
+            decoded:
         raise AssertionError(f"HTTP: colour kernel launched "
                              f"{launches['ycc_to_rgb']} times for "
-                             f"{decoded} decodes on the card")
+                             f"{converted} colour images of {decoded} "
+                             f"decodes in {decode_calls} decode() calls")
     rel = float(np.abs(logits - golden).max() / np.abs(golden).max())
     for i, name in enumerate(names):
         got = res["predict"][name]
@@ -3105,20 +3279,29 @@ def main():
                     served["clip8_int8"]["launches"][name]}
 
     kernels = []
-    for name in ("saliency_summary", "project_logits"):
+    for name in ("saliency_summary", "project_logits", "pool_backward"):
         mine = [r for r in rows if r["name"] == name]
         main_row = next(r for r in mine if r["case"]["B"] == 32
                         and r["case"]["x"] == "float32")
         slice_rows = [r for r in mine if r["case"]["N"] == 49]
+        backward = name == "pool_backward"
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
+            "name": name, "route": "cuda",
+            "source": BACKWARD_SOURCE if backward else SOURCE,
+            "replaces": BACKWARD_REPLACES if backward else REPLACES[name],
+            # the backward's main path is training: phase 4's train.train
+            "launches": run["launches"][name] if backward
+            else launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in slice_rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
-            "bound_share": main_row["bound_share"], **path_launches(name)})
+            "bound_share": main_row["bound_share"],
+            **({k: main_row[k] for k in ("autograd_ms", "kernel_ms",
+                                         "kernel_bound_ms")}
+               if backward else {}),
+            **path_launches(name)})
     log(json.dumps({"training": {
         "config": "mpii_rank1_224", "card": card,
         "step_ms": run["step_ms"], "images_per_s": run["images_per_s"],
@@ -3130,8 +3313,9 @@ def main():
         "name": "ycc_to_rgb", "route": "cuda", "source": JPEG_SOURCE,
         "replaces": JPEG_REPLACES,
         "launches": rec_run["clis"]["pipeline_train_launches"]["ycc_to_rgb"],
-        **{k: ycc[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                               "bound_by", "library_ms", "bound_share")},
+        **{k: ycc[k] for k in ("max_abs_err", "ms", "call_ms", "host_ms",
+                               "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "bound_share", "images")},
         **path_launches("ycc_to_rgb")})
     log(json.dumps({"records_run": {
         k: v for k, v in rec_run.items() if k not in ("clis", "resume")}}))

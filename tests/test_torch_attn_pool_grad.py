@@ -1,6 +1,7 @@
 """Gradients of the port's fused attentional pooling
-(``AttentionalPoolFn``: the kernels' forward, the JAX package's
-``_fused_bwd`` in torch ops) vs ``jax.vjp`` of the JAX package's
+(``AttentionalPoolFn``: the kernels' forward, ``fused_pool_backward``,
+whose plain version is the JAX package's ``_fused_bwd`` in torch ops) vs
+``jax.vjp`` of the JAX package's
 ``attentional_pool_fused`` (Pallas, interpret mode) and of its factorized
 ``ops/attn_pool.py::attentional_pool``, on the same numpy inputs and
 cotangent, on the CPU; the head's cached (P, F, C) copy of ``attn_w``.
@@ -9,10 +10,12 @@ Tolerances, of each gradient's largest magnitude: 1e-5 in float32 (sums
 in other orders); 2e-2 with bf16 X, the bound of the JAX package's own
 bf16 test (its kernel rounds s to bf16 before the second contraction, the
 port keeps float32, and dx is rounded to bf16 at the end on both sides).
-The test marked ``cuda`` holds the Function on the card, through the
-kernels, against torch autograd through the plain forward: 1e-5, and
-1e-2 for a bf16 dx (one bf16 rounding, 2^-8, of sums taken in another
-order).
+The tests marked ``cuda`` hold the Function on the card, through the
+kernels, against torch autograd through the plain forward, and the
+backward kernel (``pool_backward``) against ``fused_pool_backward_plain``
+on the same saved tensors: 1e-5, and 1e-2 for a bf16 dx (one bf16
+rounding, 2^-8, of sums taken in another order); two launches of the
+backward give the same bits.
 """
 
 import numpy as np
@@ -154,7 +157,8 @@ def test_grads_on_card_match_plain_autograd(x_dtype, b, n, f, c, p):
     apc.reset_launch_counts()
     _, grads = port_grads(inputs, g, x_dtype, device="cuda")
     torch.cuda.synchronize()
-    assert apc.launch_counts == {"saliency_summary": 1, "project_logits": 1}
+    assert apc.launch_counts == {"saliency_summary": 1, "project_logits": 1,
+                                 "pool_backward": 1}
     t = {k: torch.from_numpy(v).cuda().requires_grad_()
          for k, v in inputs.items()}
     t["x"] = t["x"].detach().to(x_dtype).requires_grad_()
@@ -165,3 +169,74 @@ def test_grads_on_card_match_plain_autograd(x_dtype, b, n, f, c, p):
     for name, got in zip(NAMES, grads):
         tol = 1e-2 if name == "x" and x_dtype == torch.bfloat16 else 1e-5
         assert rel_err(got.cpu(), t[name].grad.cpu()) < tol, name
+
+
+def test_cpu_backward_is_its_plain_version():
+    """On CPU tensors fused_pool_backward is fused_pool_backward_plain,
+    bit for bit, and launches nothing."""
+    inputs, g = make_inputs(5, p=3)
+    t = {k: torch.from_numpy(v) for k, v in inputs.items()}
+    v, s = apc.saliency_summary_plain(t["x"], t["sal_w"], t["sal_b"])
+    w_pfc = apc.attn_w_pfc(t["attn_w"])
+    args = (t["x"], w_pfc, t["attn_b"], t["sal_w"], v, s,
+            torch.from_numpy(g))
+    apc.reset_launch_counts()
+    got = apc.fused_pool_backward(*args)
+    want = apc.fused_pool_backward_plain(*args)
+    assert apc.launch_counts["pool_backward"] == 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bad, exc", [
+    ("g_shape", ValueError), ("s_dtype", TypeError), ("x_ndim", ValueError)])
+def test_backward_rejects_bad_operands(bad, exc):
+    inputs, g = make_inputs(6)
+    t = {k: torch.from_numpy(v) for k, v in inputs.items()}
+    v, s = apc.saliency_summary_plain(t["x"], t["sal_w"], t["sal_b"])
+    args = {"x": t["x"], "w_pfc": apc.attn_w_pfc(t["attn_w"]),
+            "attn_b": t["attn_b"], "sal_w": t["sal_w"], "v": v, "s": s,
+            "g": torch.from_numpy(g)}
+    if bad == "g_shape":
+        args["g"] = args["g"][:, :-1]
+    elif bad == "s_dtype":
+        args["s"] = args["s"].double()
+    else:
+        args["x"] = args["x"][0]
+    with pytest.raises(exc):
+        apc.fused_pool_backward(**args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b, n, f, c, p", [
+    (8, 49, 2048, 393, 1), (32, 196, 2048, 600, 1), (3, 196, 2048, 600, 5),
+    # the L2 re-read path, rank 8, a 16-CTA cluster of 16-column slices,
+    # an hmdb51_rgb batch
+    (2, 1000, 2048, 51, 1), (5, 225, 2048, 600, 8), (1, 49, 256, 11, 1),
+    (64, 49, 2048, 51, 1)])
+def test_backward_kernel_matches_its_plain_version(x_dtype, b, n, f, c, p):
+    """pool_backward on the card against fused_pool_backward_plain on the
+    same saved tensors and cotangent; two launches, the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inputs, g = make_inputs(b + n + p, b=b, n=n, f=f, c=c, p=p)
+    t = {k: torch.from_numpy(v).cuda() for k, v in inputs.items()}
+    x = t["x"].to(x_dtype)
+    if n == 1000:
+        assert apc.backward_plan(b, n, f, p, x_dtype).path == "l2_reread"
+    v, s = apc.saliency_summary_plain(x, t["sal_w"], t["sal_b"])
+    args = (x, apc.attn_w_pfc(t["attn_w"]), t["attn_b"], t["sal_w"], v, s,
+            torch.from_numpy(g).cuda())
+    apc.reset_launch_counts()
+    got = apc.fused_pool_backward(*args)
+    again = apc.fused_pool_backward(*args)
+    torch.cuda.synchronize()
+    assert apc.launch_counts["pool_backward"] == 2
+    want = apc.fused_pool_backward_plain(*args)
+    assert got[0].dtype == x_dtype and got[0].is_contiguous()
+    for name, a, a2, w in zip(NAMES, got, again, want):
+        assert torch.equal(a, a2), name
+        tol = 1e-2 if name == "x" and x_dtype == torch.bfloat16 else 1e-5
+        assert rel_err(a.cpu(), w.cpu()) < tol, name

@@ -137,7 +137,8 @@ def test_cpu_path_neither_builds_nor_counts():
     apc.reset_launch_counts()
     apc.fused_pool_logits(**torch_args(make_inputs(1)))
     assert not _build.ATTN_POOL.loaded()
-    assert apc.launch_counts == {"saliency_summary": 0, "project_logits": 0}
+    assert apc.launch_counts == {"saliency_summary": 0, "project_logits": 0,
+                                 "pool_backward": 0}
 
 
 @pytest.mark.cuda
@@ -165,7 +166,8 @@ def test_kernels_match_plain_on_card(x_dtype, b, n, f, c, p):
         logits, v, s = apc.fused_pool_logits(**t)
         again = apc.fused_pool_logits(**t)
     torch.cuda.synchronize()
-    assert apc.launch_counts == {"saliency_summary": 2, "project_logits": 2}
+    assert apc.launch_counts == {"saliency_summary": 2, "project_logits": 2,
+                                 "pool_backward": 0}
     for first, second in zip((logits, v, s), again):
         assert torch.equal(first, second)      # the same bits, run to run
     pv, ps = apc.saliency_summary_plain(t["x"], t["sal_w"], t["sal_b"])

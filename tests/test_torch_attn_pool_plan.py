@@ -127,3 +127,85 @@ def test_project_plan_holds_the_slab_where_b_needs_several_tiles():
 def test_project_plan_rejects_a_k_no_split_holds():
     with pytest.raises(ValueError):
         apc.project_plan(1, 49, 2 ** 18, 393, 8)
+
+
+# chip_smoke.py's phase-2 cases (B, N, P) and small test shapes (B, N, F,
+# P), for the backward's plan
+PHASE2 = [(b, 49, 1) for b in (1, 8, 16, 32, 48)] + [
+    (8, 196, 5), (8, 225, 5), (8, 392, 1), (64, 49, 1), (32, 196, 1)]
+SMALL = [(2, 49, 256, 1), (2, 49, 256, 3), (1, 4, 64, 2), (3, 5, 16, 2),
+         (1, 49, 256, 1)]
+
+
+def backward_resident_fits(n, fs, p, itemsize):
+    """As resident_fits, with the backward's third (P, N) buffer and its
+    32 bytes of static shared memory (dssum)."""
+    r2 = min(4, 256 // (fs * itemsize // 16))
+    return (math.ceil(n * fs * itemsize / 16) * 16
+            + math.ceil(3 * p * n * 4 / 16) * 16
+            + (r2 * p * fs * 4 if r2 > 1 else 0)) <= SMEM // 2 - 1024 - 32
+
+
+def check_backward_plan(b, n, f, p, x_dtype):
+    itemsize = x_dtype.itemsize
+    plan = apc.backward_plan(b, n, f, p, x_dtype)
+    fwd = apc.saliency_plan(b, n, f, p, x_dtype)
+    assert plan.smem_bytes <= SMEM - 32
+    if plan.path == "resident":
+        assert plan.smem_bytes <= SMEM // 2 - 1024 - 32
+        assert n * plan.f_slice * itemsize < plan.smem_bytes
+    assert plan.cluster in (1, 2, 4, 8, 16)
+    assert plan.cluster * plan.f_slice == f
+    assert plan.f_slice * itemsize % 16 == 0
+    assert plan.grid == b * plan.cluster
+    assert 1 <= plan.r2 <= 256
+    fits = [s for s in (1, 2, 4, 8, 16)
+            if s * 8 <= f and f % (8 * s) == 0
+            and backward_resident_fits(n, f // s, p, itemsize)]
+    assert (plan.path == "l2_reread") == (not fits)
+    # the forward's rules: the same cluster wherever the third (P, N)
+    # buffer leaves the forward's path as it is
+    if plan.path == fwd.path:
+        assert plan.cluster >= fwd.cluster
+    # the layout the C entry point checks: X's slice where resident, three
+    # (P, N) buffers, the phase-2 row classes
+    assert plan.smem_bytes == (
+        (math.ceil(n * plan.f_slice * itemsize / 16) * 16
+         if plan.path == "resident" else 0)
+        + math.ceil(3 * p * n * 4 / 16) * 16
+        + (plan.r2 * p * plan.f_slice * 4 if plan.r2 > 1 else 0))
+    return plan
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b, n, p", PHASE2)
+def test_backward_plan_at_the_phase2_shapes(b, n, p, x_dtype):
+    plan = check_backward_plan(b, n, F, p, x_dtype)
+    # B * S fills every other SM, or S is at its largest
+    assert plan.grid >= 66 or plan.cluster == 16
+    # the serving and training batches of mpii_rank1_224 keep X resident
+    if n == 49:
+        assert plan.path == "resident"
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b, n, f, p", SMALL)
+def test_backward_plan_at_small_shapes(b, n, f, p, x_dtype):
+    check_backward_plan(b, n, f, p, x_dtype)
+
+
+def test_backward_plan_holds_one_more_pn_buffer_than_the_forward():
+    for b, n, p in PHASE2:
+        fwd = apc.saliency_plan(b, n, F, p, torch.float32)
+        bwd = apc.backward_plan(b, n, F, p, torch.float32)
+        if (fwd.cluster, fwd.path, fwd.r2) == (bwd.cluster, bwd.path, bwd.r2):
+            assert bwd.smem_bytes - fwd.smem_bytes == (
+                math.ceil(3 * p * n * 4 / 16) - math.ceil(2 * p * n * 4 / 16)
+            ) * 16
+
+
+def test_backward_plan_rejects_what_no_cluster_takes():
+    with pytest.raises(ValueError):
+        apc.backward_plan(1, 49, 8192, 8, torch.float32)
+    with pytest.raises(ValueError):
+        apc.backward_plan(1, 20_000, F, 8, torch.float32)
