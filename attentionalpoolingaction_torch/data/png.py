@@ -1,5 +1,7 @@
-"""A small PNG decoder on the host, from ``zlib`` and numpy: serving's
-second image format beside JPEG.
+"""A small PNG decoder and encoder on the host, from ``zlib`` and numpy:
+serving's second image format beside JPEG, and the format of the
+attention overlays (``utils/visualize.py``) and of the image summaries of
+the event files (``utils/metrics_writer.py``).
 
 The JAX package decodes request bytes with ``cv2.imdecode(IMREAD_COLOR)``
 (``data/preprocessing_np.py``), which takes PNG as well as JPEG; the card's
@@ -17,6 +19,10 @@ The scanline filters (none, sub, up, average, Paeth) are undone with
 numpy: rows of filters none, sub and up one at a time, and the rest along
 the anti-diagonals of the pixel grid, whose pixels depend only on the
 two diagonals before them (left, above, above-left).
+
+:func:`encode` writes a uint8 RGB image as an 8-bit PNG with filter
+"none" on every row, which OpenCV's and this module's decoders read
+back bit for bit; the JAX package writes its PNGs with ``cv2.imwrite``.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import zlib
 
 import numpy as np
 
-__all__ = ["SIGNATURE", "decode", "is_png"]
+__all__ = ["SIGNATURE", "decode", "encode", "is_png"]
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples a pixel
@@ -165,3 +171,24 @@ def decode(data: bytes) -> np.ndarray:
     if channels <= 2:                        # gray (+ alpha)
         return np.repeat(pixels[:, :, :1], 3, axis=2)
     return np.ascontiguousarray(pixels[:, :, :3])
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def encode(image: np.ndarray, level: int = 6) -> bytes:
+    """PNG bytes of a uint8 (H, W, 3) RGB image: bit depth 8, colour type
+    2, no interlace, filter "none", zlib ``level``."""
+    image = np.asarray(image)
+    if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
+        raise ValueError(f"encode takes uint8 (H, W, 3), got {image.dtype} "
+                         f"{image.shape}")
+    h, w = image.shape[:2]
+    rows = np.ascontiguousarray(image).reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+    return (SIGNATURE
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
+            + _chunk(b"IEND", b""))

@@ -7,6 +7,8 @@ kernels ``lecun_normal``, biases zero.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
 
@@ -62,11 +64,14 @@ class AttentionalPoolingHead(nn.Module):
         self.sal_b = nn.Parameter(torch.zeros(rank))
         self._w_pfc_key = None
         self._w_pfc = None
+        self._w_pfc_given = None
 
     def w_pfc(self):
         """The kernel's (P, F, C) copy of ``attn_w``, remade only when
         ``attn_w`` changes: a load or an optimizer step bumps its version
         counter, so training remakes it once a step."""
+        if self._w_pfc_given is not None:
+            return self._w_pfc_given
         w = self.attn_w
         key = (w.data_ptr(), w._version, w.device)
         if key != self._w_pfc_key:
@@ -74,6 +79,17 @@ class AttentionalPoolingHead(nn.Module):
                 self._w_pfc = attn_pool_cuda.attn_w_pfc(w)
             self._w_pfc_key = key
         return self._w_pfc
+
+    @contextlib.contextmanager
+    def given_w_pfc(self, w_pfc):
+        """Forwards inside take ``w_pfc`` as the copy of ``attn_w``: an
+        exported program (``export.py``) passes it in with the weights,
+        where a traced ``attn_w`` has no storage to key a cache on."""
+        self._w_pfc_given = w_pfc
+        try:
+            yield
+        finally:
+            self._w_pfc_given = None
 
     def forward(self, feats, return_maps: bool = False):
         b, h, w, f = feats.shape

@@ -53,7 +53,7 @@ from attentionalpoolingaction_torch.ops import attn_pool_cuda
 
 __all__ = ["calibrate_act_scales", "fold_backbone", "folded_forward",
            "head_weights", "int8_matmul", "make_int8_forward",
-           "quantize_folded"]
+           "quantize_folded", "scale_tensors"]
 
 _STAGE_STRIDES = (2, 2, 2, 1)
 _K_ALIGN = 8            # CUDA _int_mm: K and N multiples of 8
@@ -62,8 +62,10 @@ _MIN_ROWS = 17          # CUDA _int_mm: more than 16 rows
 
 def _div127(t: torch.Tensor) -> torch.Tensor:
     """``t / 127`` rounded once: the divisor is a tensor on ``t``'s device,
-    since CUDA divides by a host scalar as a product with its reciprocal."""
-    return t / t.new_tensor(127.0)
+    since CUDA divides by a host scalar as a product with its reciprocal.
+    It is made by an op (``new_full``), not as a constant, so that a traced
+    program holds no tensor bound to the device it was traced on."""
+    return t / t.new_full((), 127.0)
 
 
 def _stage_sizes(backbone: str):
@@ -157,13 +159,22 @@ def head_weights(params: Mapping, device=None) -> dict:
             else None}
 
 
-def int8_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def int8_matmul(a: torch.Tensor, w: torch.Tensor,
+                least_rows: int | None = None) -> torch.Tensor:
     """int32 (M, N) = int8 ``a`` (M, K) times int8 ``w`` (N, K) transposed,
-    by ``torch._int_mm``; on CUDA, zero rows make M at least 17 and are
-    dropped again."""
+    by ``torch._int_mm``.  Zero rows make M at least 17 (CUDA's
+    ``_int_mm`` wants more than 16) and are dropped again, on every device,
+    so that a program traced on the CPU runs on a card; they leave the
+    accumulator's rows as they are.  ``least_rows`` is the least M at any
+    batch (the rows of one image): where it is 17 or more no pad is
+    needed; else the pad is ``max(17 - M, 0)`` rows, which a trace at a
+    symbolic batch keeps as an expression, so that it sets no guard on the
+    batch."""
     m = a.shape[0]
-    if a.is_cuda and m < _MIN_ROWS:
-        a = F.pad(a, (0, 0, 0, _MIN_ROWS - m))
+    if (m if least_rows is None else least_rows) < _MIN_ROWS:
+        pad = torch.sym_max(_MIN_ROWS - m, 0)
+        if not isinstance(pad, int) or pad > 0:
+            a = F.pad(a, (0, 0, 0, pad))
     return torch._int_mm(a, w.t())[:m]
 
 
@@ -203,7 +214,7 @@ def _int8_conv(xq: torch.Tensor, kernel_q: torch.Tensor, kernel_size: int,
     w = kernel_q.reshape(o, -1)
     if k_pad != k_dim:
         w = F.pad(w, (0, k_pad - k_dim))
-    return int8_matmul(cols, w).view(b, ho, wo, o)
+    return int8_matmul(cols, w, least_rows=ho * wo).view(b, ho, wo, o)
 
 
 def _float_conv(x: torch.Tensor, kernel: torch.Tensor, kernel_size: int,
@@ -225,15 +236,27 @@ def _float_conv(x: torch.Tensor, kernel: torch.Tensor, kernel_size: int,
 
 
 def _act_scale(x: torch.Tensor, cid: str, act_scales) -> torch.Tensor:
-    """The activation scale of conv ``cid``: the static one, as a float32
-    scalar, or per example, ``max(absmax, 1e-6) / 127`` in ``x``'s dtype
-    (shape (B, 1, 1, 1)), as the JAX package computes it."""
+    """The activation scale of conv ``cid``: the static one, a float32
+    scalar tensor on ``x``'s device (a weight, :func:`scale_tensors`; a
+    float is made one here), or per example, ``max(absmax, 1e-6) / 127``
+    in ``x``'s dtype (shape (B, 1, 1, 1)), as the JAX package computes
+    it."""
     if act_scales is not None and cid in act_scales:
         s = act_scales[cid]
-        if not isinstance(s, torch.Tensor):
-            s = torch.tensor(np.float32(s))
-        return s.to(x.device, torch.float32)
+        return s if isinstance(s, torch.Tensor) else torch.tensor(
+            np.float32(s), device=x.device)
     return _div127(x.abs().amax(dim=(1, 2, 3), keepdim=True).clamp_min(1e-6))
+
+
+def scale_tensors(act_scales, device) -> dict | None:
+    """Static activation scales as float32 scalar tensors on ``device``:
+    weights of the forward, which a traced program takes as inputs.
+    Tensors pass as they are."""
+    if act_scales is None:
+        return None
+    return {cid: s if isinstance(s, torch.Tensor)
+            else torch.tensor(np.float32(s), device=device)
+            for cid, s in act_scales.items()}
 
 
 def _conv(x, layer, kernel_size, stride, *, cid, act_scales, capture, dtype,
@@ -351,10 +374,9 @@ def make_int8_forward(variables, *, backbone: str = "resnet_v1_101",
     heads = head_weights(variables["params"], device)
     act_scales = None
     if calibration_batches is not None:
-        act_scales = {cid: torch.tensor(np.float32(s), device=device)
-                      for cid, s in calibrate_act_scales(
-                          folded, heads["head"], calibration_batches,
-                          backbone=backbone, pooling=pooling).items()}
+        act_scales = scale_tensors(calibrate_act_scales(
+            folded, heads["head"], calibration_batches, backbone=backbone,
+            pooling=pooling), device)
     qfolded = quantize_folded(folded)
 
     @torch.inference_mode()

@@ -12,9 +12,13 @@ Port of the JAX package's ``ops/attn_pool_pallas.py``:
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version beside it.  There is no fallback from
-the kernel to the plain version.  The JAX package picks between its two
-Pallas kernels by a VMEM budget on ``attn_w``; on Hopper the projection
-is its own kernel whatever the size of ``attn_w``.
+the kernel to the plain version.  The two forward kernels are the custom
+ops ``apa::saliency_summary`` and ``apa::project_logits``
+(``torch.library``), which ``torch.export`` keeps as nodes of a program
+(``export.py``); the backward's ``pool_backward`` is a plain ctypes
+call, since nothing exported runs a backward.  The JAX package picks
+between its two Pallas kernels by a VMEM budget on ``attn_w``; on Hopper
+the projection is its own kernel whatever the size of ``attn_w``.
 
 Gradients: :class:`AttentionalPoolFn` runs both kernels in its forward
 and saves ``x, attn_b, sal_w, v, s`` as the JAX package's custom VJP does
@@ -313,23 +317,37 @@ def _sms(device: torch.device) -> int:
 
 
 # -- wrappers ----------------------------------------------------------------
+#
+# Each forward kernel is a ``torch.library`` custom op in the ``apa``
+# namespace, opaque to tracing: ``torch.export`` keeps the op as one node
+# of the graph (its fake implementation gives the output shapes) and the
+# loaded program calls the implementation below, so the launch counters
+# count on the eager path and inside an exported program alike.  The
+# public functions check their operands (on fake tensors too) and call the
+# op.
 
-def saliency_summary(x, sal_w, sal_b):
-    """x (B, N, F) float32 or bfloat16 -> v (B, P, F), s (B, P, N), f32."""
+def _check_saliency(x, sal_w, sal_b) -> None:
     _check(x.ndim == 3, f"x must be (B, N, F), got {tuple(x.shape)}")
     _check(x.dtype in _X_DTYPES,
            f"x must be float32 or bfloat16, got {x.dtype}", TypeError)
-    b, n, f = x.shape
+    f = x.shape[2]
     _check(sal_w.ndim == 2, f"sal_w must be (F, P), got {tuple(sal_w.shape)}")
     p = sal_w.shape[1]
     _check(1 <= p <= MAX_RANK, f"rank {p} outside 1..{MAX_RANK}")
     _check_f32("sal_w", sal_w, (f, p))
     _check_f32("sal_b", sal_b, (p,))
+
+
+@torch.library.custom_op("apa::saliency_summary", mutates_args=())
+def _saliency_summary_op(x: torch.Tensor, sal_w: torch.Tensor,
+                         sal_b: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
     if x.device.type == "cpu":
         return saliency_summary_plain(x, sal_w, sal_b)
+    b, n, f = x.shape
+    p = sal_w.shape[1]
     _check(x.is_cuda, f"no kernel for device {x.device}")
     _check_cuda_operands(x, sal_w, sal_b)
-    _check_no_grad(x, sal_w, sal_b)
     _check(f % 8 == 0, f"F={f} must be a multiple of 8 (16-byte loads)")
     _check(n >= 1, "x has no positions")
     plan = saliency_plan(b, n, f, p, x.dtype, _sms(x.device))
@@ -349,14 +367,30 @@ def saliency_summary(x, sal_w, sal_b):
     return v, s
 
 
+@_saliency_summary_op.register_fake
+def _(x, sal_w, sal_b):
+    b, n, f = x.shape
+    p = sal_w.shape[1]
+    return (x.new_empty((b, p, f), dtype=torch.float32),
+            x.new_empty((b, p, n), dtype=torch.float32))
+
+
+def saliency_summary(x, sal_w, sal_b):
+    """x (B, N, F) float32 or bfloat16 -> v (B, P, F), s (B, P, N), f32:
+    the op ``apa::saliency_summary``."""
+    _check_saliency(x, sal_w, sal_b)
+    if x.is_cuda:
+        _check_no_grad(x, sal_w, sal_b)
+    return _saliency_summary_op(x, sal_w, sal_b)
+
+
 def attn_w_pfc(attn_w):
     """The (P, F, C) copy of ``attn_w (F, C, P)`` that the projection
     kernel reads, coalesced over classes.  Made once per set of weights."""
     return attn_w.to(torch.float32).permute(2, 0, 1).contiguous()
 
 
-def project_logits(v, s, w_pfc, attn_b):
-    """v (B, P, F), s (B, P, N), w_pfc (P, F, C), attn_b (C, P) -> (B, C)."""
+def _check_project(v, s, w_pfc, attn_b) -> None:
     _check(v.ndim == 3 and s.ndim == 3 and w_pfc.ndim == 3,
            "v, s and w_pfc must be 3-D")
     b, p, f = v.shape
@@ -367,13 +401,20 @@ def project_logits(v, s, w_pfc, attn_b):
     _check_f32("s", s, (b, p, n))
     _check_f32("w_pfc", w_pfc, (p, f, c))
     _check_f32("attn_b", attn_b, (c, p))
+
+
+@torch.library.custom_op("apa::project_logits", mutates_args=())
+def _project_logits_op(v: torch.Tensor, s: torch.Tensor, w_pfc: torch.Tensor,
+                       attn_b: torch.Tensor) -> torch.Tensor:
     if v.device.type == "cpu":
         return project_logits_plain(v, s, w_pfc, attn_b)
+    b, p, f = v.shape
+    n = s.shape[2]
+    c = w_pfc.shape[2]
     _check(v.is_cuda, f"no kernel for device {v.device}")
     _check_cuda_operands(v, s, w_pfc, attn_b)
     _check(w_pfc.data_ptr() % 16 == 0,
            "w_pfc must be 16-byte aligned for the kernel's 16-byte copies")
-    _check_no_grad(v, s, w_pfc, attn_b)
     _check(n >= 1, "s has no positions")
     plan = project_plan(b, n, f, c, p)
     logits = torch.empty((b, c), dtype=torch.float32, device=v.device)
@@ -388,6 +429,20 @@ def project_logits(v, s, w_pfc, attn_b):
     _raise_if(err, "project_logits", lib.apa_error_string)
     _count("project_logits")
     return logits
+
+
+@_project_logits_op.register_fake
+def _(v, s, w_pfc, attn_b):
+    return v.new_empty((v.shape[0], w_pfc.shape[2]), dtype=torch.float32)
+
+
+def project_logits(v, s, w_pfc, attn_b):
+    """v (B, P, F), s (B, P, N), w_pfc (P, F, C), attn_b (C, P) -> (B, C):
+    the op ``apa::project_logits``."""
+    _check_project(v, s, w_pfc, attn_b)
+    if v.is_cuda:
+        _check_no_grad(v, s, w_pfc, attn_b)
+    return _project_logits_op(v, s, w_pfc, attn_b)
 
 
 def fused_pool_logits(x, attn_w, attn_b, sal_w, sal_b, *, w_pfc=None):

@@ -13,12 +13,17 @@ sigmoid) and top-k as ``serve_cli``'s ``/predict``.
         --config hmdb51_clip8 --workdir /tmp/run2 --video \\
         --images f000.jpg f001.jpg f002.jpg
 
+    # from an exported artifact (export_cli.py) instead of a checkpoint:
+    python -m attentionalpoolingaction_torch.predict_cli \\
+        --exported_dir /tmp/run1/artifact --images a.jpg b.png
+
 ``--video`` with a single ``.mp4``/``.avi``/``.mov``/``.mkv``/``.webm``
 path decodes that container with OpenCV, and exits with JAX's error
-("bad video: ...") where OpenCV is not installed.  ``--exported_dir`` and
-``--data_parallel`` are not ported yet and raise
-``NotImplementedError``; ``--device`` takes the place of
-``--jax_platform``.
+("bad video: ...") where OpenCV is not installed.  With
+``--exported_dir`` the checkpoint-only flags (``--config``, ``--workdir``,
+``--int8``, ``--ema``, ``--step``, ``--set``) are usage errors.
+``--data_parallel`` is not ported yet and raises ``NotImplementedError``;
+``--device`` takes the place of ``--jax_platform``.
 """
 
 from __future__ import annotations
@@ -26,9 +31,11 @@ from __future__ import annotations
 import argparse
 import json
 
-from attentionalpoolingaction_torch import config as config_lib
 from attentionalpoolingaction_torch import serving
-from attentionalpoolingaction_torch.serve_cli import unported_flags
+from attentionalpoolingaction_torch.serve_cli import (
+    config_from_args,
+    unported_flags,
+)
 from attentionalpoolingaction_torch.train_cli import add_bool_flag
 
 VIDEO_SUFFIXES = ("mp4", "avi", "mov", "mkv", "webm", "video")
@@ -36,10 +43,12 @@ VIDEO_SUFFIXES = ("mp4", "avi", "mov", "mkv", "webm", "video")
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--config", default="mpii_rank1_224", help="preset name")
+    # the checkpoint-only flags default to None, which tells a flag given
+    # from one left out (export.reject_checkpoint_flags)
+    p.add_argument("--config", help="preset name (default mpii_rank1_224)")
     p.add_argument("--workdir", help="run dir containing checkpoints/")
     p.add_argument("--exported_dir",
-                   help="predict from an exported artifact (not ported yet)")
+                   help="predict from an exported artifact (export_cli.py)")
     p.add_argument("--images", nargs="+", action="extend", default=[],
                    help="input image paths (repeatable)")
     add_bool_flag(p, "video", False,
@@ -52,14 +61,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="inference batch size")
     p.add_argument("--step", help="checkpoint step: an int, or 'best' for "
                    "the keep-best slot (default latest)")
-    add_bool_flag(p, "int8", False,
+    add_bool_flag(p, "int8", None,
                   "BN-folded post-training int8 path (models/inference.py)")
-    add_bool_flag(p, "ema", False,
+    add_bool_flag(p, "ema", None,
                   "use the EMA weights (requires ema_decay training)")
     add_bool_flag(p, "data_parallel", False,
                   "shard each batch across all local devices (not ported "
                   "yet)")
-    p.add_argument("--set", action="append", default=[],
+    p.add_argument("--set", action="append",
                    help="config override field=value; repeatable")
     p.add_argument("--device", default=None,
                    help="torch device to predict on (default cuda)")
@@ -74,14 +83,20 @@ def _read(path: str) -> bytes:
 def main(argv=None) -> None:
     args = parse_args(argv)
     unported_flags(args)
-    if not args.workdir:
-        raise SystemExit("--workdir is required")
-    overrides = config_lib.parse_overrides(args.set)
-    overrides["workdir"] = args.workdir
-    cfg = config_lib.get_config(args.config, **overrides)
-    predictor = serving.load_predictor(
-        cfg, step=args.step, int8=args.int8, buckets=(args.batch_size,),
-        use_ema=args.ema, device=args.device)
+    if args.exported_dir:
+        from attentionalpoolingaction_torch import export as export_lib
+
+        export_lib.reject_checkpoint_flags(
+            args, ("config", "workdir", "int8", "ema", "step", "set"))
+        predictor = export_lib.load_exported(args.exported_dir,
+                                             device=args.device)
+    elif args.workdir:
+        predictor = serving.load_predictor(
+            config_from_args(args), step=args.step, int8=bool(args.int8),
+            buckets=(args.batch_size,), use_ema=bool(args.ema),
+            device=args.device)
+    else:
+        raise SystemExit("one of --workdir / --exported_dir is required")
     paths = list(args.images)
     if args.video:
         blobs = [_read(p) for p in paths]

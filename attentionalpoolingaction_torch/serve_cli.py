@@ -5,9 +5,13 @@ argparse in place of absl and the same flags by name.
         --config mpii_rank1_224 --workdir /tmp/run1 --port 8800 \\
         [--int8 [--calibration_images a.jpg ...]] [--step best] \\
         [--follow] [--decode_threads 4] [--device cpu]
+    python -m attentionalpoolingaction_torch.serve_cli \\
+        --exported_dir /tmp/run1/artifact --port 8800 [--device cpu]
 
 It serves the checkpoint of ``--workdir`` (the latest step, ``--step N``
-or ``--step best``) on ``--device`` (default ``cuda``).  Std-lib only
+or ``--step best``), or the artifact of ``--exported_dir``
+(``export_cli.py``; no model build, no checkpoint), on ``--device``
+(default ``cuda``).  Std-lib only
 (``ThreadingHTTPServer``, HTTP/1.1 keep-alive); requests coalesce through
 ``serving.DynamicBatcher``, so concurrent clients share device dispatches.
 
@@ -36,7 +40,10 @@ answered with its 503 and drained for at most ``drain_seconds`` or
 dropped and counted in ``serving_idle_timeouts_total``, not in
 ``serving_client_disconnects_total``.
 
-``--exported_dir`` and ``--data_parallel`` are not ported yet and raise
+With ``--exported_dir`` the checkpoint-only flags (``--config``,
+``--workdir``, ``--int8``, ``--ema``, ``--step``, ``--calibration_images``,
+``--set``, ``--buckets``) are usage errors, as is ``--follow``: the
+artifact fixed them all.  ``--data_parallel`` is not ported yet and raises
 ``NotImplementedError``; ``--device`` takes the place of
 ``--jax_platform``.
 """
@@ -68,11 +75,6 @@ DRAIN_BYTES = 64 * 1024
 
 def unported_flags(args) -> None:
     """Raise on the CLIs' flags that are not ported yet."""
-    if args.exported_dir:
-        raise NotImplementedError(
-            "--exported_dir (an exported artifact) is not ported yet "
-            "(ROADMAP.md, Queue 1: export); serve a checkpoint with "
-            "--workdir")
     if args.data_parallel:
         raise NotImplementedError(
             "--data_parallel is not ported yet (ROADMAP.md, Queue 1: "
@@ -341,27 +343,30 @@ def stop_server(server: ThreadingHTTPServer) -> None:
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--config", default="mpii_rank1_224", help="preset name")
+    # the checkpoint-only flags default to None, which tells a flag given
+    # from one left out (export.reject_checkpoint_flags)
+    p.add_argument("--config", help="preset name (default mpii_rank1_224)")
     p.add_argument("--workdir", help="run dir containing checkpoints/")
     p.add_argument("--exported_dir",
-                   help="serve an exported artifact (not ported yet)")
+                   help="serve an exported artifact (export_cli.py)")
     p.add_argument("--port", type=int, default=8800, help="HTTP port")
     p.add_argument("--host", default="127.0.0.1", help="bind address")
-    add_bool_flag(p, "int8", False, "serve the quantized BN-folded path")
-    add_bool_flag(p, "ema", False,
+    add_bool_flag(p, "int8", None, "serve the quantized BN-folded path")
+    add_bool_flag(p, "ema", None,
                   "serve the EMA weights (requires ema_decay training)")
     add_bool_flag(p, "data_parallel", False,
                   "shard each batch across all local devices (not ported "
                   "yet)")
-    p.add_argument("--calibration_images", action="append", default=[],
+    p.add_argument("--calibration_images", action="append",
                    help="representative image for static int8 activation "
                    "scales; repeatable (omit for per-example scales)")
     p.add_argument("--topk", type=int, default=5,
                    help="top-k classes to report")
     p.add_argument("--step", help="checkpoint step: an int, or 'best' for "
                    "the keep-best slot (default latest)")
-    p.add_argument("--buckets", default="1,8,32",
-                   help="comma-separated batch-size buckets")
+    p.add_argument("--buckets",
+                   help="comma-separated batch-size buckets (default "
+                   "1,8,32)")
     p.add_argument("--max_batch", type=int, default=32,
                    help="dynamic batcher max coalesced batch")
     p.add_argument("--max_wait_ms", type=float, default=5.0,
@@ -383,38 +388,62 @@ def parse_args(argv=None) -> argparse.Namespace:
                   "the live server; composes with --step best")
     p.add_argument("--poll_seconds", type=float, default=10.0,
                    help="--follow checkpoint poll period")
-    p.add_argument("--set", action="append", default=[],
+    p.add_argument("--set", action="append",
                    help="config override field=value; repeatable")
     p.add_argument("--device", default=None,
                    help="torch device to serve on (default cuda)")
     return p.parse_args(argv)
 
 
+def config_from_args(args) -> config_lib.TrainConfig:
+    """The config of ``--config``, ``--set`` and ``--workdir``."""
+    overrides = config_lib.parse_overrides(args.set or [])
+    overrides["workdir"] = args.workdir
+    return config_lib.get_config(args.config or "mpii_rank1_224",
+                                 **overrides)
+
+
+def load_served(args) -> serving.BucketedPredictor:
+    """The predictor the flags ask for: the artifact of
+    ``--exported_dir``, or a checkpoint of ``--workdir``."""
+    unported_flags(args)
+    if args.follow:
+        if args.exported_dir:
+            raise SystemExit(
+                "--follow tracks a checkpoint dir; an exported artifact is "
+                "immutable — serve it without --follow")
+        if args.step is not None and args.step.strip().lower() != "best":
+            raise SystemExit(
+                "--follow with a pinned numeric --step cannot advance; "
+                "drop --step (follow latest) or use --step best")
+    if args.exported_dir:
+        from attentionalpoolingaction_torch import export as export_lib
+
+        export_lib.reject_checkpoint_flags(
+            args, ("config", "workdir", "int8", "ema", "step",
+                   "calibration_images", "set", "buckets"))
+        return export_lib.load_exported(args.exported_dir,
+                                        device=args.device)
+    if not args.workdir:
+        raise SystemExit("one of --workdir / --exported_dir is required")
+    return serving.load_predictor(
+        config_from_args(args), step=args.step, int8=bool(args.int8),
+        buckets=[int(b) for b in (args.buckets or "1,8,32").split(",")],
+        calibration_files=args.calibration_images or (),
+        use_ema=bool(args.ema), device=args.device)
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
-    unported_flags(args)
-    if not args.workdir:
-        raise SystemExit("--workdir is required")
-    if args.follow and args.step is not None and \
-            args.step.strip().lower() != "best":
-        raise SystemExit(
-            "--follow with a pinned numeric --step cannot advance; drop "
-            "--step (follow latest) or use --step best")
-    overrides = config_lib.parse_overrides(args.set)
-    overrides["workdir"] = args.workdir
-    cfg = config_lib.get_config(args.config, **overrides)
-    predictor = serving.load_predictor(
-        cfg, step=args.step, int8=args.int8,
-        buckets=[int(b) for b in args.buckets.split(",")],
-        calibration_files=args.calibration_images, use_ema=args.ema,
-        device=args.device)
+    predictor = load_served(args)
     log.info("warming up buckets %s", predictor.buckets)
     predictor.warmup()
     follower = None
     if args.follow:
-        mgr, _ = ckpt_lib.manager_for_step(cfg.workdir, args.step)
+        mgr, _ = ckpt_lib.manager_for_step(predictor.cfg.workdir, args.step)
         follower = serving.CheckpointFollower(
-            predictor, mgr, use_ema=args.ema, poll_seconds=args.poll_seconds)
+            predictor, mgr, use_ema=bool(args.ema),
+            poll_seconds=args.poll_seconds)
         follower.start()
         log.info("following %s every %.1fs", mgr.directory,
                  args.poll_seconds)
@@ -424,9 +453,9 @@ def main(argv=None) -> None:
                          idle_timeout=args.idle_timeout or None,
                          max_connections=args.max_connections or None,
                          decode_threads=args.decode_threads)
-    log.info("serving %s on %s:%d (int8=%s, device=%s)", args.config,
-             args.host, server.server_address[1], predictor.int8,
-             predictor.device)
+    log.info("serving %s on %s:%d (int8=%s, device=%s)",
+             args.exported_dir or predictor.cfg.dataset, args.host,
+             server.server_address[1], predictor.int8, predictor.device)
 
     # SIGTERM: stop accepting, let in-flight handlers finish, fail the
     # still-queued futures at once

@@ -20,8 +20,9 @@ Port of the JAX package's ``serving.py`` on one device.
 The ``Predictor`` is built from Flax-layout (params, batch_stats) arrays
 through the weight bridge (``convert.py``); ``load_predictor`` builds one
 from a checkpoint of the port (the latest step, a step, or the keep-best
-slot), and ``CheckpointFollower`` hot-swaps newer steps into it.  Not
-ported yet: data-parallel serving and the exported artifact.
+slot), and ``CheckpointFollower`` hot-swaps newer steps into it;
+``export.py`` serves an exported artifact through the same
+``BucketedPredictor``.  Not ported yet: data-parallel serving.
 """
 
 from __future__ import annotations
@@ -49,8 +50,20 @@ from attentionalpoolingaction_torch.models import inference as inf
 from attentionalpoolingaction_torch.train import build_model, normalize_images
 
 DEFAULT_BUCKETS = (1, 8, 32, 128)
+NO_CLIP_FORWARD = ("this predictor has no clip forward (the artifact was "
+                   "exported per-image); re-export with "
+                   "export_predictor(include_clip=True) / a clip_frames>1 "
+                   "config, or serve from the checkpoint")
 
 log = logging.getLogger(__name__)
+
+
+def as_device_tensor(images, device) -> torch.Tensor:
+    """A batch of images (a numpy array or a tensor) as a tensor on
+    ``device``."""
+    if not isinstance(images, torch.Tensor):
+        images = torch.from_numpy(np.ascontiguousarray(images))
+    return images.to(device)
 
 
 class Overloaded(RuntimeError):
@@ -364,7 +377,7 @@ class BucketedPredictor:
         run as one (1, T, S, S, 3) clip.  {"topk": [...], "clip_frames",
         "frames_received"} or {"error": ...}."""
         if not self.supports_clips:
-            return {"error": "this predictor has no clip forward"}
+            return {"error": NO_CLIP_FORWARD}
         if not frame_blobs:
             return {"error": "bad video: no frames"}
         picks = _segment_picks(len(frame_blobs), self.clip_length)
@@ -382,7 +395,7 @@ class BucketedPredictor:
         Where OpenCV is missing the answer is {"error": "bad video:
         ..."}."""
         if not self.supports_clips:
-            return {"error": "this predictor has no clip forward"}
+            return {"error": NO_CLIP_FORWARD}
         try:
             frames, n = decode_video_frames(video_bytes, self.clip_length)
             frames = [self.preprocess_decoded(fr) for fr in frames]
@@ -450,20 +463,18 @@ class Predictor(BucketedPredictor):
         head = inf.head_weights(params, self.device)["head"]
         act_scales = None
         if self._calib is not None:
-            act_scales = {
-                cid: torch.tensor(np.float32(v), device=self.device)
-                for cid, v in inf.calibrate_act_scales(
-                    folded, head, [self._calib], backbone=self.cfg.backbone,
-                    pooling=self._pooling).items()}
+            act_scales = inf.scale_tensors(inf.calibrate_act_scales(
+                folded, head, [self._calib], backbone=self.cfg.backbone,
+                pooling=self._pooling), self.device)
         return inf.quantize_folded(folded), head, act_scales
 
-    @torch.inference_mode()
-    def logits(self, weights, images) -> torch.Tensor:
-        """float32 logits on the device of (B, S, S, 3) images or (B, T,
-        S, S, 3) clips (numpy or tensors)."""
-        if not isinstance(images, torch.Tensor):
-            images = torch.from_numpy(np.ascontiguousarray(images))
-        x = normalize_images(images.to(self.device))
+    def forward(self, weights, images: torch.Tensor) -> torch.Tensor:
+        """float32 logits of uint8 or float32 (B, S, S, 3) images or (B,
+        T, S, S, 3) clips, tensors on the weights' device, normalization
+        included: the function that ``export.py`` traces, so it takes no
+        gradient mode of its own.  ``weights`` is :attr:`_weights` or
+        what ``export.py`` rebuilds from its traced inputs."""
+        x = normalize_images(images)
         if self.int8:
             q, head, act_scales = weights
             return inf.folded_forward(
@@ -471,6 +482,12 @@ class Predictor(BucketedPredictor):
                 pooling=self._pooling, act_scales=act_scales,
                 dtype=torch.bfloat16)["logits"]
         return weights(x)["logits"].to(torch.float32)
+
+    @torch.inference_mode()
+    def logits(self, weights, images) -> torch.Tensor:
+        """float32 logits on the device of (B, S, S, 3) images or (B, T,
+        S, S, 3) clips (numpy or tensors)."""
+        return self.forward(weights, as_device_tensor(images, self.device))
 
     def _fwd(self, weights, images) -> np.ndarray:
         return self.logits(weights, images).cpu().numpy()

@@ -102,9 +102,12 @@ def normalize_images(images: torch.Tensor) -> torch.Tensor:
     normalized on the host)."""
     if images.dtype.is_floating_point:
         return images
-    mean = torch.tensor([R_MEAN, G_MEAN, B_MEAN], dtype=torch.float32,
-                        device=images.device)
-    return images.to(torch.float32) - mean
+    # a scalar a channel, not a mean tensor: a traced program (export.py)
+    # then holds no constant bound to the device it was traced on.  The
+    # float32 bits are those of subtracting a float32 mean vector.
+    x = images.to(torch.float32)
+    return torch.stack([x[..., 0] - R_MEAN, x[..., 1] - G_MEAN,
+                        x[..., 2] - B_MEAN], dim=-1)
 
 
 def build_model(cfg: config_lib.TrainConfig, device=None,

@@ -14,9 +14,11 @@ It trains on ``--device`` (default ``cuda``) from the TFRecords of
 ``<workdir>/checkpoints`` and resumes from there, writes the train and
 eval scalars as TensorBoard event files into the workdir, and with
 ``--eval_every`` evaluates ``--eval_pattern`` and keeps the best step in
-``<workdir>/checkpoints_best``.  ``--device`` takes the place of
-``--jax_platform``; ``--multiprocess`` and ``--attn_summary_every`` are not
-ported yet and raise.
+``<workdir>/checkpoints_best``.  ``--attn_summary_every N`` writes
+attention-map overlays of a fixed probe batch (``utils/visualize.py``) as
+image summaries into the event file every N steps.  ``--device`` takes the
+place of ``--jax_platform``; ``--multiprocess`` is not ported yet and
+raises.
 """
 
 from __future__ import annotations
@@ -66,8 +68,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     add_bool_flag(p, "multiprocess", False,
                   "multi-process training (not ported yet)")
     p.add_argument("--attn_summary_every", type=int, default=0,
-                   help="attention-map images every N steps (not ported "
-                   "yet)")
+                   help="attention-map overlay images in the event file "
+                   "every N steps (0 = off)")
     p.add_argument("--trace_at_step", type=int, default=0,
                    help="capture a torch.profiler trace from this step "
                    "(0 = off) into <workdir>/trace")
@@ -82,9 +84,6 @@ def main(argv=None):
     if args.multiprocess:
         raise NotImplementedError("--multiprocess is not ported yet: the "
                                   "port trains on one device")
-    if args.attn_summary_every:
-        raise NotImplementedError("--attn_summary_every (utils/visualize.py) "
-                                  "is not ported yet")
     overrides = config_lib.parse_overrides(args.set)
     for key in ("train_pattern", "eval_pattern", "workdir",
                 "init_checkpoint"):
@@ -117,6 +116,11 @@ def main(argv=None):
                     best_keeper.update(step, results, state)
 
         hooks.append(eval_hook)
+    if args.attn_summary_every:
+        from attentionalpoolingaction_torch.utils import visualize
+
+        hooks.append(visualize.make_attention_summary_hook(
+            cfg, writer, args.attn_summary_every, device=device))
     if args.trace_at_step:
         from attentionalpoolingaction_torch.utils import profiling
 

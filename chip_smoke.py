@@ -133,7 +133,30 @@ Phases; any failure raises and the process exits non-zero:
    48 records (mAP, counted), ``predict_cli`` over the fixtures in a
    subprocess (float and ``--int8``), and an ``hmdb51_clip8`` int8 clip
    through ``predict_clip_bytes``.
-9. A ``kernels`` JSON line (``launches`` from phase 3's serving run for
+9. The exported artifact and the attention-map tools, from seeded
+   checkpoints of ``mpii_rank1_224`` (phase 8's weights) and
+   ``hmdb51_clip8``.  ``export_cli`` exports ``mpii_rank1_224`` float
+   (uint8 and float32 programs), int8 with static scales calibrated on the
+   7 JPEG fixtures, the float uint8 program traced on the CPU, and
+   ``hmdb51_clip8`` with its clip programs; each export's load-back gate
+   (max |dprob| of every program against the live predictor <= 1e-6), its
+   seconds, its bytes against its weights' (<= 1.05x) and its load seconds
+   printed.  Each loaded artifact serves buckets 1/8/32 from one program,
+   each pooling kernel once a dispatch (counted); the CPU-traced artifact
+   on the card lies within ``CPU_RTOL`` of the card-traced one (TF32 off).
+   ``serve_cli --exported_dir`` in-process: /predict of the JPEG fixtures
+   and the PNG, a batch with a corrupt item, counted, the served crops'
+   logits against the golden crops' within phase 6's bound;
+   ``predict_cli --exported_dir`` in a subprocess.  Times, artifact and
+   live predictor in turns: ``predict_arrays`` median/p90 at buckets
+   1/8/32, float and int8, and /predict p50/p90 at 1 client.  Visualize:
+   ``attention_overlays`` on the card (TF32 off) against the CPU (maps
+   within ``CPU_RTOL``, overlays equal on 99% of pixels, levels within 1),
+   ``visualize_cli`` on the JPEG fixtures (2 PNGs an image, decoded back,
+   counted) and with ``--clip`` on 8 frames (the temporal attention sums
+   to 1), and ``train_cli --attn_summary_every 2`` for 4 steps from records
+   (attention/* images at steps 2 and 4 in the event file).
+10. A ``kernels`` JSON line (``launches`` from phase 3's serving run for
    the forward pooling kernels, from phase 4's ``train`` for
    ``pool_backward`` and from phase 6's ``train_cli`` for the colour
    kernel; ``train_launches`` from phase 4's ``train``, ``eval_launches``
@@ -141,8 +164,10 @@ Phases; any failure raises and the process exits non-zero:
    ``pipeline_eval_launches`` from phase 6's CLIs, one column each for
    phase 7's runs, and ``http_launches`` (the colour kernel's too),
    ``int8_serve_launches``, ``int8_eval_launches`` and
-   ``clip8_int8_serve_launches`` from phase 8's, each kernel counted over
-   each run), then the last line ``{"ok": true, "device": {...}}``.
+   ``clip8_int8_serve_launches`` from phase 8's, ``export_serve_launches``
+   (serving from the artifact over HTTP) and ``visualize_launches``
+   (``visualize_cli``) from phase 9's, each kernel counted over each run),
+   then the last line ``{"ok": true, "device": {...}}``.
 
 The kernels (``csrc/attn_pool.cu``, ``csrc/attn_pool_backward.cu``,
 ``csrc/jpeg_decode.cu`` with ``nvcc``, ``csrc/tfrecord_index.cc`` with the
@@ -187,19 +212,24 @@ from attentionalpoolingaction_torch import config as config_lib
 from attentionalpoolingaction_torch import convert
 from attentionalpoolingaction_torch import eval_cli
 from attentionalpoolingaction_torch import evaluate
+from attentionalpoolingaction_torch import export
+from attentionalpoolingaction_torch import export_cli
 from attentionalpoolingaction_torch import precision
 from attentionalpoolingaction_torch import serve_cli
 from attentionalpoolingaction_torch import serving
 from attentionalpoolingaction_torch import train
 from attentionalpoolingaction_torch import train_cli
+from attentionalpoolingaction_torch import visualize_cli
 from attentionalpoolingaction_torch.data import grain_pipeline, jpeg
-from attentionalpoolingaction_torch.data import native_io, pipeline, records
+from attentionalpoolingaction_torch.data import native_io, pipeline, png
+from attentionalpoolingaction_torch.data import records
 from attentionalpoolingaction_torch.data import preprocessing as pp
 from attentionalpoolingaction_torch.models import inference as inf
 from attentionalpoolingaction_torch.ops import _build
 from attentionalpoolingaction_torch.ops import attn_pool_cuda as apc
 from attentionalpoolingaction_torch.tf_checkpoint import _fields
 from attentionalpoolingaction_torch.train import build_model, normalize_images
+from attentionalpoolingaction_torch.utils import visualize as viz
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, float32 outside the tensor
 # cores (the kernels' FMAs are float32 on the CUDA cores)
@@ -1588,8 +1618,9 @@ def read_scalars(workdir):
             for value in (v for n, _, s in fields if n == 5
                           for m, _, v in _fields(s) if m == 1):
                 f = {k: v for k, _, v in _fields(value)}
-                out.setdefault(bytes(f[1]).decode(), []).append(
-                    (step, struct.unpack("<f", f[2])[0]))
+                if 2 in f:                   # a scalar, not an image
+                    out.setdefault(bytes(f[1]).decode(), []).append(
+                        (step, struct.unpack("<f", f[2])[0]))
     return out
 
 
@@ -3013,8 +3044,8 @@ def check_int8_forward(pred, variables, crops):
     return out
 
 
-def serve_in_turns(preds, crops_u8, rounds=4, reps=5):
-    """Median ms of a predict_arrays call of each predictor at buckets
+def _turn_times(preds, crops_u8, rounds=4, reps=5):
+    """Seconds of each predict_arrays call of each predictor at buckets
     1/8/32, the predictors in turns (a, b, b, a, ...)."""
     times = {name: {b: [] for b in (1, 8, 32)} for name in preds}
     names = list(preds)
@@ -3028,8 +3059,15 @@ def serve_in_turns(preds, crops_u8, rounds=4, reps=5):
                     t0 = time.perf_counter()
                     preds[name].predict_arrays(images)
                     times[name][b].append(time.perf_counter() - t0)
+    return times
+
+
+def serve_in_turns(preds, crops_u8, rounds=4, reps=5):
+    """Median ms of a predict_arrays call of each predictor at buckets
+    1/8/32, the predictors in turns (a, b, b, a, ...)."""
     return {name: {b: float(np.median(v) * 1e3) for b, v in t.items()}
-            for name, t in times.items()}
+            for name, t in _turn_times(preds, crops_u8, rounds,
+                                       reps).items()}
 
 
 def int8_serving(cfg, pred, crops, names, card, profile):
@@ -3223,6 +3261,431 @@ def phase_http_serving(card, golden_bound, profile=False):
     return out
 
 
+# -- phase 9: the exported artifact and the attention-map tools --------------
+
+# export_cli's load-back gate (the JAX CLI's): max |dprob| between the
+# loaded artifact and the live predictor on the same device
+EXPORT_PARITY = 1e-6
+# the programs carry no weights: an artifact within 5% of its weights' bytes
+EXPORT_BYTES_RATIO = 1.05
+# overlays on the card against the CPU: equal on this share of the pixels,
+# their colormap levels within 1, so the pixels within 2 (half a JET step
+# at alpha 0.5) where a level flips; the maps within CPU_RTOL
+VIZ_EQUAL_SHARE = 0.99
+VIZ_LEVELS = 1
+VIZ_PIXELS = 2
+
+
+def export_artifact(args, what):
+    """export_cli.main(args): the export, the load back and its gate; the
+    times, the sizes and the gate's values printed and checked."""
+    ec = export_cli.main(args)["export_cli"]
+    ratio = ec["artifact_bytes"] / ec["weight_bytes"]
+    log(f"export {what}: {ec['export_seconds']:.1f} s; artifact "
+        f"{ec['artifact_bytes'] / 1e6:.2f} MB against weights "
+        f"{ec['weight_bytes'] / 1e6:.2f} MB ({ratio:.4f}x); load "
+        f"{ec['load_seconds']:.1f} s; load-back max|dprob| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in ec["parity"].items()))
+    if max(ec["parity"].values()) > EXPORT_PARITY or \
+            ratio > EXPORT_BYTES_RATIO:
+        raise AssertionError(f"export {what}: parity {ec['parity']}, "
+                             f"bytes {ratio:.4f}x the weights'")
+    return {**ec, "bytes_ratio": ratio}
+
+
+def seeded_checkpoint(cfg, variables):
+    """A port checkpoint of ``variables`` under ``cfg.workdir``."""
+    state, _ = train.create_state(cfg, device="cuda", variables=variables)
+    checkpoint.save(checkpoint.make_manager(
+        os.path.join(cfg.workdir, "checkpoints")), state)
+
+
+def artifact_buckets(arts, crops_u8):
+    """Each loaded artifact at buckets 1/8/32 (the clip artifact: one clip
+    of 8 frames), counted: each pooling kernel once a dispatch."""
+    out = {}
+    for what, art in arts.items():
+        if art.clip_t:
+            clip = torch.from_numpy(crops_u8[np.arange(art.clip_t) % len(
+                crops_u8)][None]).cuda()
+            probs, launches = counted(lambda: art._fwd(art._weights, clip))
+            expect_launches(f"{what} artifact, a clip", launches, 1, ycc=0)
+            out[what] = {"clip": launches}
+            continue
+        out[what] = {}
+        for b in art.buckets:
+            images = crops_u8[np.arange(b) % len(crops_u8)]
+            probs, launches = counted(lambda: art.predict_arrays(images))
+            expect_launches(f"{what} artifact at bucket {b}", launches, 1,
+                            ycc=0)
+            if probs.shape != (b, art.spec.num_classes) or \
+                    not np.isfinite(probs).all():
+                raise AssertionError(f"{what} artifact at {b}: "
+                                     f"{probs.shape}")
+            out[what][b] = launches
+    log("one program serves each bucket, each pooling kernel once a "
+        "dispatch: " + "; ".join(f"{k} {list(v)}" for k, v in out.items()))
+    return out
+
+
+def check_portable(card_art, cpu_art, crops_u8):
+    """The artifact traced on the CPU, loaded on the card, against the one
+    traced on the card: the logits of the 7 golden crops (TF32 off)."""
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = card_art.logits(card_art._weights, crops_u8).cpu().numpy()
+        got = cpu_art.logits(cpu_art._weights, crops_u8).cpu().numpy()
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    log(f"an artifact traced on {cpu_art.manifest['platforms']} serving on "
+        f"the card against one traced there: logits relative {rel:.3e} "
+        f"(bound {CPU_RTOL:.0e}; bit for bit: {bool((got == want).all())})")
+    if cpu_art.manifest["platforms"] != ["cpu"] or not rel <= CPU_RTOL:
+        raise AssertionError(f"CPU-traced artifact off by {rel:.3e}")
+    return {"logits_rel": rel, "bitwise": bool((got == want).all())}
+
+
+def export_http(pred, names, datas, crops, png_data, bound):
+    """serve_cli's server over the artifact (serve_cli.load_served of
+    --exported_dir), TF32 off: /healthz, /predict of the 7 JPEG fixtures
+    and the PNG, /predict_batch with a corrupt item, counted; the answers
+    against the served crops' logits and those against the golden crops'
+    within phase 6's bound."""
+    torch.backends.cudnn.allow_tf32 = False
+    d0 = dispatches(pred)
+    try:
+        with HttpServer(pred) as srv:
+            def traffic():
+                conn = http_conn(srv.port)
+                st, _, body = http_call(conn, "GET", "/healthz")
+                if st != 200 or json.loads(body)["status"] != "ok":
+                    raise AssertionError(f"/healthz: {st} {body}")
+                topk = {}
+                for name, data in list(zip(names, datas)) + [
+                        (PNG_FIXTURE, png_data)]:
+                    st, _, body = http_call(conn, "POST", "/predict", data)
+                    if st != 200:
+                        raise AssertionError(f"/predict {name}: {st}")
+                    topk[name] = json.loads(body)["topk"]
+                st, _, body = http_call(conn, "POST", "/predict_batch",
+                                        json.dumps({"images": [
+                                            b64(datas[0]),
+                                            b64(b"\xff\xd8corrupt")]}))
+                res = json.loads(body)["results"]
+                if st != 200 or "topk" not in res[0] or \
+                        not res[1].get("error", "").startswith("bad image"):
+                    raise AssertionError(f"/predict_batch: {st} {res}")
+                conn.close()
+                return topk
+
+            topk, launches = counted(traffic)
+            n_disp = int(dispatches(pred) - d0)
+            converted = jpeg.ycc_images
+        served = torch.stack([pred.preprocess(d) for d in datas])
+        logits = pred.logits(pred._weights, served).cpu().numpy()
+        golden = pred.logits(pred._weights, torch.from_numpy(
+            crops["eval"]).cuda()).cpu().numpy()
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    expect_launches("HTTP from the artifact", launches, n_disp)
+    if not 0 < launches["ycc_to_rgb"] == converted:
+        raise AssertionError(f"HTTP from the artifact: {launches} for "
+                             f"{converted} colour images")
+    for i, name in enumerate(names):
+        want = softmax(logits[i])
+        top = [e["class"] for e in topk[name]]
+        if top[0] != int(np.argmax(want)) or not np.allclose(
+                [e["prob"] for e in topk[name]], want[top], rtol=1e-3,
+                atol=1e-7):
+            raise AssertionError(f"/predict {name} from the artifact: "
+                                 f"{topk[name]} vs {want[top]}")
+    rel = float(np.abs(logits - golden).max() / np.abs(golden).max())
+    log(f"serve_cli --exported_dir on the card (TF32 off): 7 JPEGs and a "
+        f"PNG through /predict, a batch with a corrupt item; {n_disp} "
+        f"dispatches, launches {launches}; served crops vs the JAX golden "
+        f"crops, logits relative {rel:.3e} (bound {bound:.3e})")
+    if not rel <= bound:
+        raise AssertionError(f"artifact logits off the golden crops' by "
+                             f"{rel:.3e} > {bound:.3e}")
+    return {"launches": launches, "dispatches": n_disp,
+            "logits_rel_vs_golden": rel, "bound": bound}
+
+
+def export_predict_cli(art, names):
+    """predict_cli --exported_dir over the fixtures in a subprocess."""
+    paths = [os.path.join(FIXTURES, n) for n in names]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "attentionalpoolingaction_torch.predict_cli",
+         "--exported_dir", art, "--images", *paths],
+        capture_output=True, text=True, timeout=600, cwd=HERE)
+    if proc.returncode:
+        raise AssertionError(f"predict_cli --exported_dir: "
+                             f"{proc.stderr[-3000:]}")
+    lines = [json.loads(x) for x in proc.stdout.strip().splitlines()]
+    if [x["image"] for x in lines] != paths or \
+            any(len(x["topk"]) != 5 for x in lines):
+        raise AssertionError(f"predict_cli --exported_dir: {lines}")
+    s = time.perf_counter() - t0
+    log(f"predict_cli --exported_dir in a subprocess over 7 images: "
+        f"{s:.1f} s (process start and artifact load included)")
+    return s
+
+
+def predict_latencies(pred, datas, n=30):
+    """/predict seconds at 1 client over the two 1280x720 fixtures."""
+    with HttpServer(pred) as srv:
+        c = http_conn(srv.port)
+        lat = []
+        for i in range(n + 5):
+            t0 = time.perf_counter()
+            st, _, _ = http_call(c, "POST", "/predict", datas[i % 2])
+            if st != 200:
+                raise AssertionError(f"/predict: {st}")
+            lat.append(time.perf_counter() - t0)
+        c.close()
+    return lat[5:]
+
+
+def export_times(pairs, crops_u8, mpii, card):
+    """The artifact against the live predictor, in turns: predict_arrays
+    median and p90 ms at buckets 1/8/32 (float and int8), and /predict
+    p50 and p90 at 1 client (float), cuDNN's default TF32."""
+    out = {}
+    for kind, (live, art) in pairs.items():
+        times = _turn_times({"live": live, "artifact": art}, crops_u8)
+        out[kind] = {name: {b: {"median_ms": float(np.median(v) * 1e3),
+                                "p90_ms": float(np.percentile(v, 90) * 1e3)}
+                            for b, v in t.items()}
+                     for name, t in times.items()}
+        log(f"predict_arrays ms a call on {card}, {kind}, in turns: "
+            + "; ".join(f"{name} " + " / ".join(
+                f"{m['median_ms']:.3f} (p90 {m['p90_ms']:.3f})"
+                for m in per.values())
+                for name, per in out[kind].items()) + " at buckets 1/8/32")
+    live, art = pairs["float"]
+    lat = {"live": [], "artifact": []}
+    for name in ("live", "artifact", "artifact", "live"):
+        lat[name] += predict_latencies(live if name == "live" else art,
+                                       mpii)
+    out["predict_1_client"] = {
+        name: {"p50_ms": float(np.percentile(v, 50) * 1e3),
+               "p90_ms": float(np.percentile(v, 90) * 1e3)}
+        for name, v in lat.items()}
+    log(f"/predict at 1 client over the 1280x720 fixtures on {card}, in "
+        f"turns: " + "; ".join(
+            f"{k} p50 {v['p50_ms']:.3f} ms, p90 {v['p90_ms']:.3f} ms"
+            for k, v in out["predict_1_client"].items()))
+    return out
+
+
+def overlay_levels(maps, size):
+    """The colormap levels ``uint8(map * 255)`` of overlays of ``maps``
+    (..., h, w), each normalized over itself, on the CPU."""
+    m = viz.normalize_map(viz.upsample_map(torch.as_tensor(maps), size,
+                                           size), (-2, -1))
+    return (m * 255).to(torch.uint8).numpy()
+
+
+def check_overlays(what, got, want, got_maps, want_maps, size):
+    g, w = np.stack(got).astype(int), np.stack(want).astype(int)
+    share = float((g == w).mean())
+    gap = int(np.abs(g - w).max())
+    lv = int(np.abs(overlay_levels(got_maps, size).astype(int)
+                    - overlay_levels(want_maps, size).astype(int)).max())
+    if share < VIZ_EQUAL_SHARE or gap > VIZ_PIXELS or lv > VIZ_LEVELS:
+        raise AssertionError(f"{what} overlays card vs CPU: equal on "
+                             f"{share:.4%}, max gap {gap}, levels {lv}")
+    return {"equal_share": share, "max_gap": gap, "max_level_gap": lv}
+
+
+def check_visualize(cfg, variables, crops_u8, names, workdir, hmdb_dir):
+    """attention_overlays on the card (TF32 off) against the CPU on two
+    golden crops, counted; visualize_cli on the JPEG fixtures (2 PNGs an
+    image, decoded back; its launches the kernels line's
+    visualize_launches) and with --clip on 8 frames of hmdb51_clip8."""
+    card_model = convert.load_flax_variables(
+        build_model(cfg, device="cuda"), *variables)
+    cpu_model = convert.load_flax_variables(
+        build_model(cfg, device="cpu"), *variables)
+    x = normalize_images(torch.from_numpy(crops_u8[:2]))
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got, launches = counted(
+            lambda: viz.attention_overlays(card_model, x.cuda()))
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    expect_launches("attention_overlays of 2 images", launches, 1, ycc=0)
+    want = viz.attention_overlays(cpu_model, x)
+    del card_model, cpu_model
+    rel = {k: float(np.abs(got[k] - want[k]).max() / np.abs(want[k]).max())
+           for k in ("attn_maps", "saliency_maps", "logits")}
+    if max(rel.values()) > CPU_RTOL or \
+            not (got["class_idx"] == want["class_idx"]).all():
+        raise AssertionError(f"visualize maps card vs CPU: {rel}")
+    cls = want["class_idx"]
+    pick = np.arange(2)
+    out = {"maps_rel": rel, "overlays": {
+        "top_down": check_overlays(
+            "top_down", got["top_down"], want["top_down"],
+            got["attn_maps"][pick, ..., cls],
+            want["attn_maps"][pick, ..., cls], cfg.image_size),
+        "saliency": check_overlays(
+            "saliency", got["saliency"], want["saliency"],
+            got["saliency_maps"], want["saliency_maps"], cfg.image_size)}}
+    log(f"attention_overlays card (TF32 off) vs CPU: maps relative {rel} "
+        f"(bound {CPU_RTOL:.0e}); overlays {out['overlays']}")
+
+    paths = [os.path.join(FIXTURES, n) for n in names]
+    out_dir = os.path.join(workdir, "viz")
+    t0 = time.perf_counter()
+    res, launches = counted(lambda: visualize_cli.main(
+        ["--workdir", workdir, "--images", *paths, "--out_dir", out_dir]))
+    out["visualize_cli_s"] = time.perf_counter() - t0
+    expect_launches("visualize_cli over 7 JPEGs", launches, 1)
+    if not 0 < launches["ycc_to_rgb"] <= len(paths):
+        raise AssertionError(f"visualize_cli: colour launches {launches}")
+    if len(res["paths"]) != 2 * len(paths) or any(
+            png.decode(pathlib.Path(p).read_bytes()).shape != (224, 224, 3)
+            for p in res["paths"]):
+        raise AssertionError(f"visualize_cli wrote {res['paths']}")
+    out["launches"] = launches
+    frames = [os.path.join(FIXTURES, FRAME_FIXTURES[i % 3])
+              for i in range(8)]
+    clip = visualize_cli.main(
+        ["--config", "hmdb51_clip8", "--workdir", hmdb_dir, "--clip",
+         "--images", *frames, "--out_dir", os.path.join(workdir, "viz8")])
+    ta = clip["temporal_attention"]
+    if len(clip["paths"]) != 16 or ta.shape != (8,) or \
+            abs(float(ta.sum()) - 1) > 1e-5:
+        raise AssertionError(f"visualize_cli --clip: {len(clip['paths'])} "
+                             f"overlays, temporal attention {ta}")
+    out["clip_temporal_attention"] = ta.tolist()
+    log(f"visualize_cli: 14 overlays of 7 JPEGs in "
+        f"{out['visualize_cli_s']:.1f} s (restore and model build "
+        f"included), decoded back; launches {launches}; --clip of 8 "
+        f"frames (hmdb51_clip8): class {clip['class_idx']}, temporal "
+        f"attention " + ", ".join(f"{v:.3f}" for v in ta))
+    return out
+
+
+def read_images(workdir):
+    """tag -> [(step, decoded RGB)] of the image summaries of the event
+    files of ``workdir``."""
+    out = {}
+    for name in sorted(os.listdir(workdir)):
+        if "tfevents" not in name:
+            continue
+        for raw in records.read_tfrecord(os.path.join(workdir, name)):
+            fields = list(_fields(raw))
+            step = next((v for n, _, v in fields if n == 2), 0)
+            for value in (v for n, _, s in fields if n == 5
+                          for m, _, v in _fields(s) if m == 1):
+                f = {k: v for k, _, v in _fields(value)}
+                if 4 in f:
+                    img = {k: v for k, _, v in _fields(f[4])}
+                    out.setdefault(bytes(f[1]).decode(), []).append(
+                        (step, png.decode(bytes(img[4]))))
+    return out
+
+
+def check_attn_summary(workdir, datas):
+    """train_cli --attn_summary_every 2 for 4 steps from records: the
+    event file holds attention/* overlays of 4 eval images at steps 2
+    and 4."""
+    paths = write_records(workdir, datas, prefix="summary_")
+    run_dir = os.path.join(workdir, "summary_run")
+    t0 = time.perf_counter()
+    train_cli.main(["--config", "mpii_rank1_224", "--train_pattern",
+                    paths["train"], "--eval_pattern", paths["val"],
+                    "--workdir", run_dir, "--num_steps", "4",
+                    "--attn_summary_every", "2"])
+    s = time.perf_counter() - t0
+    images = read_images(run_dir)
+    want = {f"attention/{k}/image/{i}" for k in ("top_down", "saliency")
+            for i in range(4)}
+    if set(images) != want or any(
+            [st for st, _ in v] != [2, 4]
+            or any(im.shape != (224, 224, 3) for _, im in v)
+            for v in images.values()):
+        raise AssertionError(f"attention summaries: {sorted(images)}")
+    log(f"train_cli --attn_summary_every 2: 4 steps in {s:.1f} s; the event "
+        f"file holds {len(images)} attention/* tags at steps 2 and 4")
+    return {"train_cli_s": s, "tags": sorted(images)}
+
+
+def phase_export(card, golden_bound):
+    """The exported artifact and the attention-map tools on the card; see
+    the module docstring, phase 9."""
+    t_phase = time.monotonic()
+    names, datas, crops, _ = load_fixtures()
+    with open(os.path.join(FIXTURES, PNG_FIXTURE), "rb") as f:
+        png_data = f.read()
+    crops_u8 = crops["eval"]
+    base = config_lib.get_config("mpii_rank1_224")
+    variables = with_bn_statistics(precision.seeded_variables(base, 8), 8)
+    out = {"config": "mpii_rank1_224", "card": card}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as d:
+        cfg = dataclasses.replace(base, workdir=d)
+        seeded_checkpoint(cfg, variables)
+        hmdb = os.path.join(d, "hmdb")
+        hcfg = config_lib.get_config("hmdb51_clip8", workdir=hmdb)
+        seeded_checkpoint(hcfg, precision.seeded_variables(hcfg, 3))
+        calib = [os.path.join(FIXTURES, n) for n in names]
+        art = {k: os.path.join(d, f"artifact_{k}")
+               for k in ("float", "int8", "cpu", "clip8")}
+        out["exports"] = {
+            "float": export_artifact(
+                ["--workdir", d, "--out_dir", art["float"]],
+                "mpii_rank1_224 float (uint8, float32)"),
+            "int8": export_artifact(
+                ["--workdir", d, "--out_dir", art["int8"], "--int8",
+                 *itertools.chain.from_iterable(
+                     ("--calibration_images", p) for p in calib)],
+                "mpii_rank1_224 int8, static scales (uint8, float32)"),
+            "cpu": export_artifact(
+                ["--workdir", d, "--out_dir", art["cpu"], "--device",
+                 "cpu", "--input_dtypes", "uint8"],
+                "mpii_rank1_224 float traced on the CPU (uint8)"),
+            "clip8": export_artifact(
+                ["--config", "hmdb51_clip8", "--workdir", hmdb, "--out_dir",
+                 art["clip8"]],
+                "hmdb51_clip8 (uint8, float32; images and clips)")}
+        loaded = {k: export.load_exported(v) for k, v in art.items()}
+        for a in loaded.values():
+            a.warmup()
+        out["buckets"] = artifact_buckets(loaded, crops_u8)
+        out["portable"] = check_portable(loaded["float"], loaded["cpu"],
+                                         crops_u8)
+        served = serve_cli.load_served(serve_cli.parse_args(
+            ["--exported_dir", art["float"]]))
+        served.warmup()
+        out["http"] = export_http(served, names, datas, crops, png_data,
+                                  golden_bound)
+        del served
+        out["predict_cli_s"] = export_predict_cli(art["float"], names)
+        live = serving.load_predictor(cfg, buckets=(1, 8, 32),
+                                      device="cuda")
+        live8 = serving.load_predictor(cfg, int8=True, buckets=(1, 8, 32),
+                                       calibration_files=calib,
+                                       device="cuda")
+        live.warmup()
+        live8.warmup()
+        mpii = [x for n, x in zip(names, datas) if n in MPII_FIXTURES]
+        out["times"] = export_times(
+            {"float": (live, loaded["float"]), "int8": (live8,
+                                                        loaded["int8"])},
+            crops_u8, mpii, card)
+        del live, live8, loaded
+        out["visualize"] = check_visualize(cfg, variables, crops_u8, names,
+                                           d, hmdb)
+        out["attn_summary"] = check_attn_summary(d, datas)
+    out["phase_s"] = time.monotonic() - t_phase
+    log(f"phase 9 took {out['phase_s']:.1f} s (workdir removed)")
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -3251,6 +3714,7 @@ def main():
         "hico_multilabel", "hmdb51_rgb", "hmdb51_clip8"))
     served = phase_http_serving(card, rec_run["record_logits"]["bound"],
                                 profile=args.profile)
+    exported = phase_export(card, rec_run["record_logits"]["bound"])
 
     def path_launches(name):
         """The launches of ``name`` on each main path, each counted over
@@ -3276,7 +3740,11 @@ def main():
                 "int8_eval_launches":
                     served["int8_eval"]["int8"]["launches"][name],
                 "clip8_int8_serve_launches":
-                    served["clip8_int8"]["launches"][name]}
+                    served["clip8_int8"]["launches"][name],
+                "export_serve_launches":
+                    exported["http"]["launches"][name],
+                "visualize_launches":
+                    exported["visualize"]["launches"][name]}
 
     kernels = []
     for name in ("saliency_summary", "project_logits", "pool_backward"):
@@ -3322,6 +3790,7 @@ def main():
     log(json.dumps({"configs_run": configs}, default=str))
     log(json.dumps({"serving_run": {
         k: v for k, v in served.items() if k != "http"}}, default=str))
+    log(json.dumps({"export_run": exported}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

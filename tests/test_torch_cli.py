@@ -33,7 +33,7 @@ from attentionalpoolingaction_torch import config as config_lib
 from attentionalpoolingaction_torch import eval_cli
 from attentionalpoolingaction_torch import train
 from attentionalpoolingaction_torch import train_cli
-from attentionalpoolingaction_torch.data import records
+from attentionalpoolingaction_torch.data import png, records
 from attentionalpoolingaction_torch.data.datasets import get_dataset
 from attentionalpoolingaction_torch.tf_checkpoint import _fields
 from attentionalpoolingaction_torch.utils import profiling
@@ -59,12 +59,12 @@ def data():
         yield d
 
 
-def scalars(workdir):
-    """tag -> [(step, value)] of the event files in ``workdir``, read with
-    the port's record reader and protobuf field decoder (TensorBoard's
-    reader is held against the writer in test_torch_records.py; it imports
-    TensorFlow, seconds of this file's budget)."""
-    out = {}
+def summary_values(workdir):
+    """(step, {field: value}) of every summary value of the event files
+    in ``workdir``, read with the port's record reader and protobuf field
+    decoder (TensorBoard's reader is held against the writer in
+    test_torch_records.py; it imports TensorFlow, seconds of this file's
+    budget)."""
     for name in sorted(os.listdir(workdir)):
         if "tfevents" not in name:
             continue
@@ -73,9 +73,30 @@ def scalars(workdir):
             step = next((v for n, _, v in fields if n == 2), 0)
             for value in (v for n, _, s in fields if n == 5
                           for m, _, v in _fields(s) if m == 1):
-                f = dict((k, v) for k, _, v in _fields(value))
-                out.setdefault(bytes(f[1]).decode(), []).append(
-                    (step, struct.unpack("<f", f[2])[0]))
+                yield step, dict((k, v) for k, _, v in _fields(value))
+
+
+def scalars(workdir):
+    """tag -> [(step, value)] of the scalar summaries in ``workdir``."""
+    out = {}
+    for step, f in summary_values(workdir):
+        if 2 in f:
+            out.setdefault(bytes(f[1]).decode(), []).append(
+                (step, struct.unpack("<f", f[2])[0]))
+    return out
+
+
+def images(workdir):
+    """tag -> [(step, decoded RGB image)] of the image summaries in
+    ``workdir`` (``Summary.Image``: height 1, width 2, colorspace 3,
+    encoded_image_string 4)."""
+    out = {}
+    for step, f in summary_values(workdir):
+        if 4 in f:
+            img = dict((k, v) for k, _, v in _fields(f[4]))
+            decoded = png.decode(bytes(img[4]))
+            assert decoded.shape == (img[1], img[2], 3) and img[3] == 3
+            out.setdefault(bytes(f[1]).decode(), []).append((step, decoded))
     return out
 
 
@@ -101,8 +122,16 @@ def test_train_cli_trains_resumes_and_writes_events(data):
     assert got["eval/num_examples"] == [(2, 5.0)]
     with pytest.raises(NotImplementedError, match="multiprocess"):
         train_cli.main(args + ["--multiprocess"])
-    with pytest.raises(NotImplementedError, match="attn_summary_every"):
-        train_cli.main(args + ["--attn_summary_every", "5"])
+    # attention overlays of the eval split's first 4 images at step 4
+    state = train_cli.main(args + ["--num_steps", "4",
+                                   "--attn_summary_every", "2"])
+    assert state.step == 4 and state.model.training
+    got = images(f"{data}/run")
+    for kind in ("top_down", "saliency"):
+        for i in range(4):
+            (step, img), = got[f"attention/{kind}/image/{i}"]
+            assert step == 4 and img.shape == (64, 64, 3)
+    assert len(got) == 8
 
 
 def test_eval_cli_prints_its_json_line(data, capsys):

@@ -86,7 +86,9 @@ def test_scan_sees_every_module():
                 "train_cli", "eval_cli", "data/records", "data/native_io",
                 "data/preprocessing", "data/jpeg", "data/grain_pipeline",
                 "data/pipeline", "utils/metrics_writer", "utils/profiling",
-                "models/inference", "data/png", "serve_cli", "predict_cli"):
+                "models/inference", "data/png", "serve_cli", "predict_cli",
+                "export", "export_cli", "utils/visualize", "visualize_cli",
+                "convert_cli"):
         assert f"attentionalpoolingaction_torch/{mod}.py" in names
     assert set(cv2_importers(
         ROOT / "attentionalpoolingaction_torch/data/jpeg.py")) == {
@@ -124,6 +126,11 @@ def test_card_path_imports_without_host_libraries():
         "import attentionalpoolingaction_torch.predict_cli\n"
         "import attentionalpoolingaction_torch.models.inference\n"
         "import attentionalpoolingaction_torch.data.png\n"
+        "import attentionalpoolingaction_torch.export\n"
+        "import attentionalpoolingaction_torch.export_cli\n"
+        "import attentionalpoolingaction_torch.utils.visualize\n"
+        "import attentionalpoolingaction_torch.visualize_cli\n"
+        "import attentionalpoolingaction_torch.convert_cli\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)

@@ -3,7 +3,8 @@ a CPU predictor: the JAX package's HTTP tests of ``tests/test_serving.py``
 mirrored (end to end, keep-alive, 429 with ``Retry-After``, atomic
 ``/predict_batch`` with no device work, idle reaping, the connection cap,
 a mid-body stall, an over-cap 503 to a client that already sent,
-``/predict_video``), and the repairs: the over-cap drain ends within its
+``/predict_video``), serving from an exported artifact
+(``--exported_dir``), and the repairs: the over-cap drain ends within its
 deadline, a mid-body stall counts as an idle timeout, and decodes run on
 at most ``decode_threads`` threads however many connections come and go.
 
@@ -13,6 +14,7 @@ resnet_v1_50 at 64 px (``resize_min`` 72), random Flax-layout weights from
 import base64
 import http.client
 import json
+import shutil
 import socket
 import sys
 import tempfile
@@ -27,6 +29,7 @@ import torch
 from attentionalpoolingaction_torch import checkpoint as ckpt_lib
 from attentionalpoolingaction_torch import config as config_lib
 from attentionalpoolingaction_torch import convert
+from attentionalpoolingaction_torch import export_cli
 from attentionalpoolingaction_torch import predict_cli
 from attentionalpoolingaction_torch import serve_cli
 from attentionalpoolingaction_torch import serving
@@ -510,9 +513,43 @@ def test_predict_cli_prints_one_line_an_image(workdir, tmp_path, capsys):
                       "--device", "cpu", *sets])
     clip = json.loads(capsys.readouterr().out.strip())
     assert clip["frames"] == paths and clip["frames_received"] == 3
-    for flag in ("--data_parallel", "--exported_dir=/x"):
-        with pytest.raises(NotImplementedError):
-            predict_cli.main(["--workdir", workdir, "--images", *paths,
-                              flag, *sets])
-        with pytest.raises(NotImplementedError):
-            serve_cli.main(["--workdir", workdir, flag, *sets])
+    with pytest.raises(NotImplementedError):
+        predict_cli.main(["--workdir", workdir, "--images", *paths,
+                          "--data_parallel", *sets])
+    with pytest.raises(NotImplementedError):
+        serve_cli.main(["--workdir", workdir, "--data_parallel", *sets])
+    # the same checkpoint exported: predict_cli and serve_cli answer from
+    # the artifact with the checkpoint's bits (float32 on the CPU)
+    art = str(tmp_path / "artifact")
+    export_cli.main(["--workdir", workdir, "--out_dir", art, "--buckets",
+                     "1", "--input_dtypes", "uint8", "--device", "cpu",
+                     *sets])
+    capsys.readouterr()
+    predict_cli.main(["--exported_dir", art, "--images", *paths, "--topk",
+                      "2", "--batch_size", "1", "--device", "cpu"])
+    assert [json.loads(x) for x in
+            capsys.readouterr().out.strip().splitlines()] == lines
+    served = serve_cli.load_served(serve_cli.parse_args(
+        ["--exported_dir", art, "--device", "cpu"]))
+    assert served.buckets == (1,) and not served.int8
+    with Serving(served, topk=2) as srv:
+        conn = srv.conn()
+        for path, line in zip(paths, lines):
+            with open(path, "rb") as f:
+                conn.request("POST", "/predict", body=f.read())
+            assert json.loads(conn.getresponse().read())["topk"] == \
+                line["topk"]
+    # what the artifact fixed is a usage error beside it, as is --follow
+    for extra, name in ((["--workdir", workdir], "--workdir"),
+                        (["--int8"], "--int8"), (["--noema"], "--ema"),
+                        (["--config", "mpii_rank1_224"], "--config"),
+                        (["--step", "3"], "--step"), (sets[:1], "--set")):
+        with pytest.raises(SystemExit, match=name):
+            predict_cli.main(["--exported_dir", art, "--images", *paths,
+                              *extra])
+    for extra in (["--buckets", "1"], ["--calibration_images", paths[0]]):
+        with pytest.raises(SystemExit, match=extra[0]):
+            serve_cli.main(["--exported_dir", art, *extra])
+    with pytest.raises(SystemExit, match="immutable"):
+        serve_cli.main(["--exported_dir", art, "--follow"])
+    shutil.rmtree(art)      # ~100 MB; pytest keeps its tmp_path

@@ -9,11 +9,14 @@ slim ImageNet checkpoint has them.
 The conversion must be bitwise equal leaf for leaf.  A port model started
 from the file (``init_checkpoint``) must give the JAX model's logits
 within 1e-4 relative, the tolerance of ``tests/test_torch_resnet.py``
-(float32 through ResNet-50 in another order of summation)."""
+(float32 through ResNet-50 in another order of summation).  ``convert_cli``
+(report, merge, ``--parity_check``) runs as a module on these fixtures."""
 
 import dataclasses
 import os
 import struct
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -24,6 +27,7 @@ from tensorflow.core.protobuf import saver_pb2
 
 from attentionalpoolingaction_torch import checkpoint as ckpt_lib
 from attentionalpoolingaction_torch import config as config_lib
+from attentionalpoolingaction_torch import convert_cli
 from attentionalpoolingaction_torch import tf_checkpoint
 from attentionalpoolingaction_torch import train
 from attentionalpoolingaction_torch.convert import (
@@ -34,6 +38,7 @@ from attentionalpoolingaction_tpu import checkpoint as jax_ckpt
 from attentionalpoolingaction_tpu.models import ActionModel
 
 torch.set_num_threads(2)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 tf1 = tf.compat.v1
 SCOPE = "resnet_v1_50"
 EXTRA = {
@@ -272,3 +277,26 @@ def test_reader_rejects_what_it_does_not_handle(fixtures, tmp_path):
         tf_checkpoint.CheckpointReader(prefix)
     with pytest.raises(FileNotFoundError):
         tf_checkpoint.CheckpointReader(str(tmp_path / "missing"))
+
+
+def test_convert_cli_runs_as_a_module(fixtures):
+    """``python -m ...convert_cli --parity_check`` on the V2 bundle: the
+    report, the merge onto the backbone and a finite feature map at 224 px;
+    in this process on the V1 file, the counts of the conversion."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "attentionalpoolingaction_torch.convert_cli",
+         "--slim_checkpoint", fixtures["v2"], "--backbone", SCOPE,
+         "--parity_check", "--device", "cpu"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert f"merge onto {SCOPE} OK" in proc.stdout
+    assert "feature map (2, 2048, 7, 7)" in proc.stdout
+    assert "PARITY-READY" in proc.stdout
+    report = convert_cli.main(["--slim_checkpoint", fixtures["v1"],
+                               "--backbone", SCOPE])
+    converted = ckpt_lib.convert_slim_checkpoint(fixtures["v1"],
+                                                 model_scope=SCOPE)
+    assert report == {
+        "params": len(ckpt_lib._flatten(converted["params"])),
+        "batch_stats": len(ckpt_lib._flatten(converted["batch_stats"]))}
+    assert f"converted {report['params']} params" in proc.stdout
