@@ -38,6 +38,7 @@ import torch
 
 from attentionalpoolingaction_torch import convert
 from attentionalpoolingaction_torch import tf_checkpoint
+from attentionalpoolingaction_torch.parallel import multihost
 
 log = logging.getLogger(__name__)
 
@@ -135,21 +136,24 @@ def make_manager(workdir, max_to_keep: int | None = 3) -> CheckpointManager:
 
 
 def save(manager: CheckpointManager, state, step: int | None = None) -> None:
-    """Save a ``train.TrainState`` as step ``step`` (default its own)."""
-    payload = {"step": int(state.step),
-               "model": state.model.state_dict(),
-               "optimizer": state.optimizer.state_dict()}
-    if state.ema_params is not None:
-        payload["ema_params"] = dict(state.ema_params)
-    manager.save(int(state.step) if step is None else int(step), payload)
+    """Save a ``train.TrainState`` as step ``step`` (default its own).  In
+    a job of several processes every process calls it: the state is
+    gathered whole (the head's class shards, ZeRO-1's slices), process 0
+    writes it, and a barrier follows."""
+    payload = state.payload()
+    if multihost.process_index() == 0:
+        manager.save(int(state.step) if step is None else int(step),
+                     payload)
+    multihost.barrier()
 
 
 def restore(manager: CheckpointManager, state, step: int | None = None):
     """Load step ``step`` (default the latest) into the live ``state`` in
-    place, its tensors mapped to the model's device, whatever device the
-    step was saved from.  A saved EMA is read only into a state that keeps
-    one; a state that keeps one raises on a step without it.  Returns the
-    state, or None when there is no step."""
+    place, its tensors mapped to the model's device, whatever device or
+    topology the step was saved from; every process of a job restores.  A
+    saved EMA is read only into a state that keeps one; a state that
+    keeps one raises on a step without it.  Returns the state, or None
+    when there is no step."""
     step = manager.latest_step() if step is None else step
     if step is None:
         return None
@@ -158,13 +162,7 @@ def restore(manager: CheckpointManager, state, step: int | None = None):
     if state.ema_params is not None and "ema_params" not in payload:
         raise ValueError(f"step {step} under {manager.directory} has no "
                          "ema_params to restore into the state's EMA")
-    state.model.load_state_dict(payload["model"])
-    state.optimizer.load_state_dict(payload["optimizer"])
-    if state.ema_params is not None:
-        with torch.no_grad():
-            for name, t in state.ema_params.items():
-                t.copy_(payload["ema_params"][name])
-    state.step = int(payload["step"])
+    state.load_payload(payload)
     return state
 
 
@@ -265,6 +263,8 @@ class BestKeeper:
         if prev is not None and value <= float(prev["value"]):
             return False
         save(self._mgr, state, step=int(step))
+        if multihost.process_index() != 0:
+            return True
         tmp = self._meta.with_name(self._meta.name + _TMP_SUFFIX)
         tmp.write_text(json.dumps(
             {"step": int(step), "metric": name, "value": value}))

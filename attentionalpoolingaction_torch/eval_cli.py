@@ -14,7 +14,12 @@ results as one JSON line, with the JAX CLI's keys (the metrics and
 ``step``).  ``--follow`` evaluates each new step as it appears; ``--tb``
 (on by default; ``--notb``) writes the ``eval/*`` scalars as TensorBoard
 event files into the workdir; ``--per_class_output`` appends the
-per-class AP.  ``--multiprocess`` is not ported yet and raises.
+per-class AP.
+
+``--multiprocess`` joins a job of one process a card (as ``train_cli``'s
+does): each process evaluates its shard of the split and the results are
+gathered, the processes agree on process 0's step (``--follow`` too), and
+only process 0 prints and writes.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from attentionalpoolingaction_torch import checkpoint as ckpt_lib
 from attentionalpoolingaction_torch import config as config_lib
 from attentionalpoolingaction_torch import evaluate as eval_lib
 from attentionalpoolingaction_torch.device import resolve_device
+from attentionalpoolingaction_torch.parallel import multihost
 from attentionalpoolingaction_torch.train_cli import add_bool_flag
 from attentionalpoolingaction_torch.utils import metrics_writer
 
@@ -46,7 +52,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", default=None,
                    help="torch device to evaluate on (default cuda)")
     add_bool_flag(p, "multiprocess", False,
-                  "multi-process evaluation (not ported yet)")
+                  "join a multi-process job (torchrun's environment): each "
+                  "process evaluates 1/process_count of the split, results "
+                  "are gathered")
     add_bool_flag(p, "follow", False,
                   "keep polling for new checkpoints and evaluate each one")
     p.add_argument("--poll_secs", type=float, default=60,
@@ -67,9 +75,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> list[dict]:
     """Evaluate as the flags say; returns the results printed."""
     args = parse_args(argv)
+    device = None
     if args.multiprocess:
-        raise NotImplementedError("--multiprocess is not ported yet: the "
-                                  "port evaluates in one process")
+        device = multihost.setup(device=args.device)
     if args.follow and args.step is not None:
         raise SystemExit(
             "--follow re-evaluates each NEW checkpoint; --step (incl. "
@@ -80,21 +88,29 @@ def main(argv=None) -> list[dict]:
     if args.workdir:
         overrides["workdir"] = args.workdir
     cfg = config_lib.get_config(args.config, **overrides)
-    device = resolve_device(args.device)
+    device = device or resolve_device(args.device)
 
     mgr, step_flag = ckpt_lib.manager_for_step(cfg.workdir, args.step)
     evaluator = eval_lib.Evaluator(cfg, device=device)   # built once
-    writer = metrics_writer.make_writer(cfg.workdir) if args.tb else None
+    # every process holds the same gathered results; process 0 emits them
+    first = multihost.process_index() == 0
+    writer = (metrics_writer.make_writer(cfg.workdir)
+              if args.tb and first else None)
     want_per_class = args.per_class or bool(args.per_class_output)
     printed = []
 
     def eval_step(step):
         restored = ckpt_lib.restore_for_eval(mgr, step=step)
-        if restored is None:
+        # if any process failed to restore (a step pruned in between),
+        # every process skips: the others would wait in the gather
+        if multihost.allreduce_flag(restored is None):
             return None
         results = evaluator(restored, return_per_class=want_per_class)
         results["step"] = int(restored.step)
         log.info("eval results: %s", results)
+        if not first:
+            printed.append(results)
+            return results
         if writer is not None:
             metrics_writer.write_eval(writer, results["step"], results)
             writer.flush()
@@ -118,14 +134,15 @@ def main(argv=None) -> list[dict]:
 
     try:
         if not args.follow:
-            step = step_flag if step_flag is not None else mgr.latest_step()
+            step = (step_flag if step_flag is not None
+                    else multihost.broadcast_step(mgr.latest_step()))
             if step is None or eval_step(step) is None:
                 raise SystemExit(f"no checkpoint found under {mgr.directory}")
             return printed
         seen = set()
         while args.max_evals is None or len(seen) < args.max_evals:
             mgr.reload()
-            latest = mgr.latest_step()
+            latest = multihost.broadcast_step(mgr.latest_step())
             if latest is not None and latest not in seen:
                 seen.add(latest)
                 eval_step(latest)

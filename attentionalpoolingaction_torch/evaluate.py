@@ -19,8 +19,12 @@ clip rows a video, which the per-video averaging of :func:`compute_metrics`
 combines.  ``eval_int8`` evaluates the BN-folded int8 forward
 (:func:`make_int8_eval_step`, ``models/inference.py``).
 
-Not ported yet, and raising ``NotImplementedError``: multi-process
-gathers.
+In a job of several processes (``parallel.multihost.setup``, one card a
+process) each process reads its shard of the split, unless the caller
+hands it an iterator, and the logits, labels, masks, annotations and
+video ids are gathered (``multihost.allgather_host_arrays``, padded to
+the largest shard), so that every process computes the same metrics as
+one process would.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from attentionalpoolingaction_torch.data.datasets import get_dataset
 from attentionalpoolingaction_torch.device import resolve_device
 from attentionalpoolingaction_torch.models import inference as inf
 from attentionalpoolingaction_torch.ops import metrics as metrics_lib
+from attentionalpoolingaction_torch.parallel import multihost
 from attentionalpoolingaction_torch.train import (
     TrainState,
     batch_to_device,
@@ -54,8 +59,12 @@ log = logging.getLogger(__name__)
 
 
 def mesh_from_config(cfg: config_lib.TrainConfig):
-    """None: the port evaluates on one device (a sharded eval is not
-    ported yet; on one device the JAX function returns None too)."""
+    """None: the eval forward runs on this process's one card.  The JAX
+    function builds a mesh of the local devices only (a process fetches
+    its logits to the host), and returns None where a process has one
+    device; the port has one card a process, so what is sharded is the
+    split (:func:`make_eval_input`), by process."""
+    del cfg
     return None
 
 
@@ -93,10 +102,9 @@ def make_int8_eval_step(cfg: config_lib.TrainConfig, mesh=None,
     ``params`` is another object than the last call's (a strong
     reference, so a recycled ``id()`` cannot serve stale weights).  With
     ``multicrop`` the images are (B, crops, H, W, 3) and the logits are
-    averaged over the crops."""
-    if mesh is not None:
-        raise NotImplementedError("a sharded int8 eval step is not ported "
-                                  "yet: the port evaluates on one device")
+    averaged over the crops.  ``mesh`` is :func:`mesh_from_config`'s: the
+    step is this process's, on its split's shard."""
+    del mesh
     device = resolve_device(device)
     pooling = "avg" if cfg.pooling == "avg" else "attention"
     dtype = torch.bfloat16 if cfg.bf16_backbone else torch.float32
@@ -132,9 +140,9 @@ def make_eval_input(cfg: config_lib.TrainConfig, spec,
     ``input_pipeline`` "tfdata" and "grain" both read through the port's
     pipeline.  With ``clip_frames`` > 1 (``input_pipeline`` "grain" only,
     as in the JAX package): ``eval_clips`` deterministic float32 clips a
-    video, each in ``eval_multicrop`` crops folded into rows.  The port
-    runs one process, which reads the whole split whatever
-    ``shard_by_process`` says."""
+    video, each in ``eval_multicrop`` crops folded into rows.  With
+    ``shard_by_process`` in a job of several processes, this process's
+    shard of the rows (every ``process_count``-th from its index)."""
     if cfg.eval_clips > 1 and cfg.clip_frames <= 1:
         raise ValueError(
             f"eval_clips={cfg.eval_clips} requires clip mode "
@@ -147,6 +155,9 @@ def make_eval_input(cfg: config_lib.TrainConfig, spec,
         raise ValueError("no eval_iter and no cfg.eval_pattern")
     kw = dict(batch_size=cfg.eval_batch_size, image_size=cfg.image_size,
               resize_min=cfg.resize_min_resolved, device=device)
+    if shard_by_process:
+        kw.update(shard_index=multihost.process_index(),
+                  shard_count=multihost.process_count())
     if cfg.clip_frames > 1:
         return grain_pipeline.make_video_clip_eval_dataset(
             cfg.eval_pattern, spec, clip_frames=cfg.clip_frames,
@@ -167,15 +178,6 @@ def _multicrop(cfg: config_lib.TrainConfig) -> bool:
                 and cfg.clip_frames <= 1)
 
 
-def _check_ported(cfg: config_lib.TrainConfig) -> None:
-    if torch.distributed.is_available() and \
-            torch.distributed.is_initialized() and \
-            torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            "multi-process evaluation (sharded split, gathered results) is "
-            "not ported yet")
-
-
 def _weights(state, use_ema: bool):
     """The weights of ``state`` to evaluate: a ``TrainState``'s state dict
     (its parameters replaced by its EMA with ``use_ema``), or the
@@ -187,9 +189,9 @@ def _weights(state, use_ema: bool):
             "eval_ema=True but the state/checkpoint has no ema_params "
             "— train with --set ema_decay=0.9999 (or similar) first")
     if isinstance(state, TrainState):
-        sd = state.model.state_dict()
+        sd = state.full_state_dict()
         if use_ema:
-            sd.update(ema)
+            sd.update(state.full_ema())
         return sd
     return (ema if use_ema else state.params), state.batch_stats
 
@@ -246,6 +248,23 @@ def eval_logits(step_fn, eval_iter: Iterable, *, device,
     if pending is not None:
         collect(*pending)
     return {k: np.concatenate(v) for k, v in host.items() if v}
+
+
+def _gather_keys(host: dict, spec) -> dict:
+    """``host`` with every key the gather pairs, an empty shard's too: a
+    process with no rows still joins the collective with (0, ...) arrays
+    of the same dtypes."""
+    c = spec.num_classes
+    empty = {"logits": np.zeros((0, c), np.float32),
+             "label": (np.zeros((0, c), np.float32) if spec.multi_label
+                       else np.zeros((0,), np.int32)),
+             "mask": np.zeros((0,), np.float32)}
+    if spec.multi_label:
+        empty["anno"] = np.zeros((0, c), np.int32)
+    if spec.is_video:
+        empty["video_id"] = np.zeros((0,), np.int32)
+    out = {k: host.get(k, v) for k, v in empty.items()}
+    return {k: np.asarray(v, empty[k].dtype) for k, v in out.items()}
 
 
 def compute_metrics(cfg: config_lib.TrainConfig, host: dict, *,
@@ -338,7 +357,6 @@ class Evaluator:
     quantizes the state's weights for :func:`make_int8_eval_step`."""
 
     def __init__(self, cfg: config_lib.TrainConfig, device=None):
-        _check_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         if cfg.eval_int8:
@@ -353,10 +371,12 @@ class Evaluator:
     def logits(self, state, eval_iter=None, *, max_batches=None
                ) -> dict[str, np.ndarray]:
         """:func:`eval_logits` of the weights of ``state`` (see
-        :func:`evaluate`)."""
+        :func:`evaluate`); in a job of several processes with no
+        ``eval_iter``, every process's shard, gathered."""
+        spec = get_dataset(self.cfg.dataset)
+        shard = multihost.process_count() > 1 and eval_iter is None
         if eval_iter is None:
-            eval_iter = make_eval_input(self.cfg,
-                                        get_dataset(self.cfg.dataset),
+            eval_iter = make_eval_input(self.cfg, spec, shard_by_process=shard,
                                         device=self.device)
         weights = _weights(state, self.cfg.eval_ema)
         if self.cfg.eval_int8:
@@ -371,8 +391,11 @@ class Evaluator:
         else:
             self.model.load_state_dict(weights)
             step_fn = self.step_fn
-        return eval_logits(step_fn, eval_iter, device=self.device,
+        host = eval_logits(step_fn, eval_iter, device=self.device,
                            max_batches=max_batches)
+        if shard:
+            host = multihost.allgather_host_arrays(_gather_keys(host, spec))
+        return host
 
     def __call__(self, state, *, eval_iter=None, max_batches=None,
                  return_per_class=False):

@@ -214,10 +214,11 @@ def export_predictor(predictor: serving.Predictor, out_dir: str, *,
     a symbolic batch of ``clip_length`` frames), so that a loaded artifact
     serves /predict_video; it defaults to True for clip configs
     (``cfg.clip_frames > 1``)."""
-    if getattr(predictor, "mesh", None) is not None:
+    if getattr(predictor, "replicas", ()):
         raise ValueError(
             "data_parallel predictors would pin the artifact to this "
-            "host's topology; export a single-device predictor")
+            "host's topology; export a single-device predictor and enable "
+            "data_parallel at serve time instead")
     if include_clip is None:
         include_clip = (predictor.supports_clips
                         and predictor.cfg.clip_frames > 1)
@@ -291,15 +292,14 @@ class ExportedPredictor(serving.BucketedPredictor):
     """Serve an exported artifact with the live Predictor's interface
     (predict_arrays, predict_bytes, clips, warmup, the DynamicBatcher and
     HTTP server), built from ``manifest.json``, ``weights.npz`` and the
-    programs alone, on ``device`` (default ``cuda``)."""
+    programs alone, on ``device`` (default ``cuda``).  ``data_parallel``
+    serves one replica of the weights a local card (``devices``), as the
+    live Predictor does: artifacts are exported single-device and stay
+    portable across topologies."""
 
     def __init__(self, artifact_dir: str, *,
                  stats: serving.ServingStats | None = None,
-                 data_parallel: bool = False, device=None):
-        if data_parallel:
-            raise NotImplementedError(
-                "data-parallel serving is not ported yet (ROADMAP.md, "
-                "Queue 1: parallel); serve on one device")
+                 data_parallel: bool = False, devices=None, device=None):
         with open(os.path.join(artifact_dir, MANIFEST)) as f:
             manifest = json.load(f)
         if manifest["format_version"] != FORMAT_VERSION:
@@ -312,8 +312,12 @@ class ExportedPredictor(serving.BucketedPredictor):
         self.int8 = bool(manifest["int8"])
         self.device = resolve_device(device)
         self.stats = stats or serving.ServingStats()
-        self.buckets = tuple(manifest["buckets"])
-        self._weights = load_weights(artifact_dir, manifest, self.device)
+        self.buckets = self._init_data_parallel(
+            data_parallel, manifest["buckets"], devices)
+        self._weights = (
+            tuple(load_weights(artifact_dir, manifest, d)
+                  for d in self.replicas) if self.replicas
+            else load_weights(artifact_dir, manifest, self.device))
 
         # the ExportedPrograms by (input rank, dtype name), and their
         # callable modules
@@ -333,10 +337,11 @@ class ExportedPredictor(serving.BucketedPredictor):
                         for key, ep in self.programs.items()}
 
     @torch.inference_mode()
-    def logits(self, weights, images) -> torch.Tensor:
-        """float32 logits on the device of (B, S, S, 3) images or, where
-        the artifact has clip programs, (B, T, S, S, 3) clips."""
-        images = serving.as_device_tensor(images, self.device)
+    def logits(self, weights, images, device=None) -> torch.Tensor:
+        """float32 logits on ``device`` (default the predictor's; the
+        weights' own) of (B, S, S, 3) images or, where the artifact has
+        clip programs, (B, T, S, S, 3) clips."""
+        images = serving.as_device_tensor(images, device or self.device)
         size = self.cfg.image_size
         frames = (self.clip_t,) if images.ndim == 5 else ()
         if images.ndim not in (4, 5) or (images.ndim == 5
@@ -356,9 +361,6 @@ class ExportedPredictor(serving.BucketedPredictor):
         (logits,) = graph(*weights, images)
         return logits
 
-    def _fwd(self, weights, images) -> np.ndarray:
-        return self.logits(weights, images).cpu().numpy()
-
     def warmup(self, dtypes=None):
         """The manifest's exported dtypes by default: the base class's
         uint8 would fail on an artifact exported for float32 only."""
@@ -369,7 +371,8 @@ class ExportedPredictor(serving.BucketedPredictor):
 
 def load_exported(artifact_dir: str, *,
                   stats: serving.ServingStats | None = None,
-                  data_parallel: bool = False,
+                  data_parallel: bool = False, devices=None,
                   device=None) -> ExportedPredictor:
     return ExportedPredictor(artifact_dir, stats=stats,
-                             data_parallel=data_parallel, device=device)
+                             data_parallel=data_parallel, devices=devices,
+                             device=device)

@@ -18,6 +18,7 @@ from attentionalpoolingaction_torch.models.resnet import (
 )
 from attentionalpoolingaction_torch.ops import attn_pool as ap_ops
 from attentionalpoolingaction_torch.ops import attn_pool_cuda
+from attentionalpoolingaction_torch.parallel import mesh as mesh_lib
 
 
 class AveragePoolingHead(nn.Module):
@@ -30,8 +31,32 @@ class AveragePoolingHead(nn.Module):
         lecun_normal_(self.logits.weight, generator)
         nn.init.zeros_(self.logits.bias)
 
+    class_group = None
+
+    def shard_classes(self, group, index: int, count: int) -> None:
+        """Keep classes ``index`` of ``count`` even shards (tensor
+        parallelism over the mesh's model axis, the group ``group``): the
+        logits of the other shards are all-gathered in the forward."""
+        self.logits.weight = nn.Parameter(_shard(self.logits.weight, 0,
+                                                 index, count))
+        self.logits.bias = nn.Parameter(_shard(self.logits.bias, 0,
+                                               index, count))
+        self.class_group = group
+
     def forward(self, feats):
-        return self.logits(feats.to(torch.float32).mean(dim=(1, 2)))
+        pooled = feats.to(torch.float32).mean(dim=(1, 2))
+        if self.class_group is None:
+            return self.logits(pooled)
+        # each rank's gradient of the pooled features covers its classes
+        pooled = mesh_lib.reduce_grad(pooled, self.class_group)
+        return mesh_lib.gather_classes(self.logits(pooled), self.class_group)
+
+
+def _shard(t: torch.Tensor, dim: int, index: int, count: int) -> torch.Tensor:
+    n = t.shape[dim]
+    if n % count:
+        raise ValueError(f"{n} classes do not split evenly into {count}")
+    return t.detach().narrow(dim, index * (n // count), n // count).clone()
 
 
 class AttentionalPoolingHead(nn.Module):
@@ -46,7 +71,18 @@ class AttentionalPoolingHead(nn.Module):
 
     The init stddev is (n*f)^-1/2 per branch, as in the JAX head, so that
     random-init logits start O(var(x)); ``num_positions`` is n.
+
+    :meth:`shard_classes` keeps one shard of the classes (``attn_w[:,
+    shard, :]``, ``attn_b[shard]``) for tensor parallelism over the
+    mesh's model axis: ``project_logits`` runs on the shard, the logits
+    are all-gathered over the model group, and ``AttentionalPoolFn``'s
+    backward sums the shards' gradients of ``v`` and ``s`` over the group
+    before its pass over X, so that the gradients of X and of ``sal_w``,
+    ``sal_b`` are whole.  ``saliency_summary`` stays replicated: ``s`` and
+    ``v`` are class-free.
     """
+
+    class_group = None
 
     def __init__(self, num_features: int, num_classes: int, rank: int = 1,
                  num_positions: int = 49,
@@ -65,6 +101,14 @@ class AttentionalPoolingHead(nn.Module):
         self._w_pfc_key = None
         self._w_pfc = None
         self._w_pfc_given = None
+
+    def shard_classes(self, group, index: int, count: int) -> None:
+        """Keep classes ``index`` of ``count`` even shards over the model
+        group ``group`` (see the class docstring)."""
+        self.attn_w = nn.Parameter(_shard(self.attn_w, 1, index, count))
+        self.attn_b = nn.Parameter(_shard(self.attn_b, 0, index, count))
+        self._w_pfc_key = None
+        self.class_group = group
 
     def w_pfc(self):
         """The kernel's (P, F, C) copy of ``attn_w``, remade only when
@@ -98,7 +142,10 @@ class AttentionalPoolingHead(nn.Module):
         # the cached copy takes no gradient: AttentionalPoolFn's backward
         # gives attn_w its own
         logits = attn_pool_cuda.attentional_pool_fused(
-            x.contiguous(), *params, w_pfc=self.w_pfc())
+            x.contiguous(), *params, w_pfc=self.w_pfc(),
+            class_group=self.class_group)
+        if self.class_group is not None:
+            logits = mesh_lib.gather_classes(logits, self.class_group)
         if return_maps:
             top, bot = ap_ops.attention_maps(x, *params)
             return logits, (top.reshape(b, h, w, -1), bot.reshape(b, h, w))

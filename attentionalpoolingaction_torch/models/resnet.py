@@ -110,12 +110,25 @@ class BatchNorm(nn.BatchNorm2d):
     the two the batch was normalized with.  It computes in its input's
     dtype: given bfloat16 and its float32 parameters and statistics, the
     reductions and the normalization run in float32 and the output is
-    bfloat16."""
+    bfloat16.
+
+    With ``sync_group`` (a process group: the mesh's data axis,
+    ``train.make_train_step``) the train-mode statistics are those of the
+    rows of every rank of the group, as Flax's batch norm reduces over the
+    global batch under pjit: the per-rank sums are all-reduced through a
+    differentiable all-reduce (``parallel.mesh.all_reduce_sum``), the mean
+    first and then the sum of squared deviations from it (the biased
+    variance, as the one-process path computes it).  Eval mode and
+    ``freeze_bn`` do not reduce."""
+
+    sync_group = None
 
     def forward(self, x):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if self.sync_group is not None:
+            return self._synced(x)
         y, mean, invstd = torch.native_batch_norm(
             x, self.weight, self.bias, None, None, True, 0.0, self.eps)
         with torch.no_grad():
@@ -124,6 +137,30 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_var.lerp_(invstd.pow(-2).sub_(self.eps),
                                    self.momentum)
         return y
+
+    def _synced(self, x):
+        # imported here: parallel/ imports the weight bridge, which
+        # imports this module
+        from attentionalpoolingaction_torch.parallel.mesh import (
+            all_reduce_sum,
+        )
+
+        xf = x.to(torch.float32)
+        c = xf.shape[1]
+        count = xf.new_full((1,), float(xf.numel() // c))
+        sums = all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)), count]),
+                              self.sync_group)
+        n = sums[c].detach()
+        mean = sums[:c] / n
+        dev = xf - mean[None, :, None, None]
+        var = all_reduce_sum(dev.square().sum(dim=(0, 2, 3)),
+                             self.sync_group) / n
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = dev * scale[None, :, None, None] + self.bias[None, :, None, None]
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.detach(), self.momentum)
+            self.running_var.lerp_(var.detach(), self.momentum)
+        return y.to(x.dtype)
 
 
 def _bn(channels: int, bn_momentum: float) -> BatchNorm:

@@ -495,6 +495,23 @@ def fused_pool_backward(x, w_pfc, attn_b, sal_w, v, s, g):
     x (B, N, F) float32 or bfloat16; w_pfc (P, F, C), attn_b (C, P), sal_w
     (F, P), v (B, P, F), s (B, P, N) and g (B, C) float32.  ``dx`` comes
     back in x's dtype, the rest in float32."""
+    _check_backward(x, w_pfc, attn_b, sal_w, v, s, g)
+    if x.device.type == "cpu":
+        return fused_pool_backward_plain(x, w_pfc, attn_b, sal_w, v, s, g)
+    _check(x.is_cuda, f"no kernel for device {x.device}")
+    # autograd may hand over an expanded cotangent (the gradient of a sum)
+    g = g.contiguous()
+    _check_cuda_operands(x, w_pfc, attn_b, sal_w, v, s, g)
+    b, p, f = v.shape
+    c = w_pfc.shape[2]
+    dv = (g @ w_pfc.reshape(p * f, c).t()).reshape(b, p, f)
+    d_attn_w = torch.einsum("bpf,bc->fcp", v, g)
+    dx, d_sal_w, d_sal_b, d_attn_b = _pool_backward_kernel(
+        x, dv, s, g, attn_b, sal_w)
+    return dx, d_attn_w, d_attn_b, d_sal_w, d_sal_b
+
+
+def _check_backward(x, w_pfc, attn_b, sal_w, v, s, g) -> None:
     _check(x.ndim == 3, f"x must be (B, N, F), got {tuple(x.shape)}")
     _check(x.dtype in _X_DTYPES,
            f"x must be float32 or bfloat16, got {x.dtype}", TypeError)
@@ -509,17 +526,18 @@ def fused_pool_backward(x, w_pfc, attn_b, sal_w, v, s, g):
     _check_f32("v", v, (b, p, f))
     _check_f32("s", s, (b, p, n))
     _check_f32("g", g, (b, c))
-    if x.device.type == "cpu":
-        return fused_pool_backward_plain(x, w_pfc, attn_b, sal_w, v, s, g)
-    _check(x.is_cuda, f"no kernel for device {x.device}")
-    # autograd may hand over an expanded cotangent (the gradient of a sum)
-    g = g.contiguous()
-    _check_cuda_operands(x, w_pfc, attn_b, sal_w, v, s, g)
+
+
+def _pool_backward_kernel(x, dv, s, g, attn_b, sal_w):
+    """The ``pool_backward`` kernel's pass over X and its ``sum(0)``:
+    ``(dx, d_sal_w, d_sal_b, d_attn_b)`` from ``dv`` and the cotangent
+    ``g`` (B, C) with ``attn_b`` (C, P), of which the kernel makes
+    ``dssum = g alpha`` and ``d_attn_b``."""
+    b, n, f = x.shape
+    p, c = dv.shape[1], g.shape[1]
     _check(f % 8 == 0, f"F={f} must be a multiple of 8 (16-byte loads)")
     _check(n >= 1, "x has no positions")
     plan = backward_plan(b, n, f, p, x.dtype, _sms(x.device))
-    dv = (g @ w_pfc.reshape(p * f, c).t()).reshape(b, p, f)
-    d_attn_w = torch.einsum("bpf,bc->fcp", v, g)
     dx = torch.empty_like(x, memory_format=torch.contiguous_format)
     # each image's d_sal_w (F, P), d_sal_b (P) and d_attn_b (C, P), summed
     # over B below
@@ -538,8 +556,54 @@ def fused_pool_backward(x, w_pfc, attn_b, sal_w, v, s, g):
         _raise_if(err, "pool_backward", lib.apb_error_string)
         _count("pool_backward")
     total = red.sum(dim=0)
-    return (dx, d_attn_w, total[fp + p:].view(c, p), total[:fp].view(f, p),
-            total[fp:fp + p])
+    return (dx, total[:fp].view(f, p), total[fp:fp + p],
+            total[fp + p:].view(c, p))
+
+
+def _pool_backward_given_dv(x, sal_w, s, dv, dssum):
+    """``(dx, d_sal_w, d_sal_b)`` of the saliency and the summary for the
+    cotangents ``dv`` (B, P, F) and ``dssum`` (B, P) of ``v`` and of
+    ``s`` summed over the positions.  On a card the ``pool_backward``
+    kernel, given ``dssum`` as a (B, P) cotangent and the (P, P) identity
+    as ``attn_b`` (its ``g alpha`` is then ``dssum``, and the identity's
+    gradient is dropped); on the CPU the plain ops."""
+    if x.device.type == "cpu":
+        xf = x.to(torch.float32)
+        sw = sal_w.to(torch.float32)
+        ds = torch.einsum("bnf,bpf->bpn", xf, dv) + dssum[:, :, None]
+        dx = torch.einsum("bpn,bpf->bnf", s, dv)
+        dx = dx + torch.einsum("bpn,fp->bnf", ds, sw)
+        return (dx.to(x.dtype), torch.einsum("bnf,bpn->fp", xf, ds),
+                ds.sum(dim=(0, 2)))
+    _check(x.is_cuda, f"no kernel for device {x.device}")
+    dv, dssum = dv.contiguous(), dssum.contiguous()
+    _check_cuda_operands(x, sal_w, s, dv, dssum)
+    eye = torch.eye(dv.shape[1], dtype=torch.float32, device=x.device)
+    dx, d_sal_w, d_sal_b, _ = _pool_backward_kernel(
+        x, dv, s, dssum, eye, sal_w)
+    return dx, d_sal_w, d_sal_b
+
+
+def sharded_pool_backward(x, w_pfc, attn_b, sal_w, v, s, g, group):
+    """The backward of one class shard under tensor parallelism:
+    ``w_pfc``, ``attn_b`` and ``g`` hold this rank's classes.  Their
+    ``dv = g A`` and ``dssum = g alpha`` cover those classes only, so one
+    all-reduce over ``group`` sums them before the pass over X; ``dx``,
+    ``d_sal_w`` and ``d_sal_b`` are then whole and equal on every rank of
+    the group, ``d_attn_w`` and ``d_attn_b`` this rank's shard."""
+    import torch.distributed as dist
+
+    _check_backward(x, w_pfc, attn_b, sal_w, v, s, g)
+    g = g.contiguous()
+    b, p, f = v.shape
+    c = w_pfc.shape[2]
+    dvs = torch.cat([(g @ w_pfc.reshape(p * f, c).t()), g @ attn_b], dim=1)
+    dist.all_reduce(dvs, group=group)
+    dv, dssum = dvs[:, :p * f].reshape(b, p, f), dvs[:, p * f:]
+    d_attn_w = torch.einsum("bpf,bc->fcp", v, g)
+    d_attn_b = torch.einsum("bp,bc->cp", s.sum(dim=2), g)
+    dx, d_sal_w, d_sal_b = _pool_backward_given_dv(x, sal_w, s, dv, dssum)
+    return dx, d_attn_w, d_attn_b, d_sal_w, d_sal_b
 
 
 class AttentionalPoolFn(torch.autograd.Function):
@@ -551,25 +615,35 @@ class AttentionalPoolFn(torch.autograd.Function):
     so ``attn_w`` is an input only to receive its gradient."""
 
     @staticmethod
-    def forward(ctx, x, attn_w, attn_b, sal_w, sal_b, w_pfc):
+    def forward(ctx, x, attn_w, attn_b, sal_w, sal_b, w_pfc,
+                class_group=None):
         v, s = saliency_summary(x, sal_w, sal_b)
         logits = project_logits(v, s, w_pfc, attn_b)
         ctx.save_for_backward(x, w_pfc, attn_b, sal_w, v, s)
+        ctx.class_group = class_group
         return logits
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        grads = fused_pool_backward(*ctx.saved_tensors, g)
-        return (*grads, None)
+        if ctx.class_group is None:
+            grads = fused_pool_backward(*ctx.saved_tensors, g)
+        else:
+            grads = sharded_pool_backward(*ctx.saved_tensors, g,
+                                          ctx.class_group)
+        return (*grads, None, None)
 
 
-def attentional_pool_fused(x, attn_w, attn_b, sal_w, sal_b, *, w_pfc=None):
+def attentional_pool_fused(x, attn_w, attn_b, sal_w, sal_b, *, w_pfc=None,
+                           class_group=None):
     """Drop-in for ``ops.attn_pool.attentional_pool``: (B, C) float32,
     through :class:`AttentionalPoolFn` on every device.  ``w_pfc`` is as
-    for :func:`fused_pool_logits`."""
+    for :func:`fused_pool_logits`.  With ``class_group`` the weights are
+    one class shard of a tensor-parallel head, and the logits are the
+    shard's (:func:`sharded_pool_backward`)."""
     f, c, p = attn_w.shape
     _check_f32("attn_w", attn_w, (f, c, p))
     if w_pfc is None:
         w_pfc = attn_w_pfc(attn_w.detach())
-    return AttentionalPoolFn.apply(x, attn_w, attn_b, sal_w, sal_b, w_pfc)
+    return AttentionalPoolFn.apply(x, attn_w, attn_b, sal_w, sal_b, w_pfc,
+                                   class_group)

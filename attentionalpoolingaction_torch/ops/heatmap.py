@@ -65,13 +65,18 @@ def transform_keypoints(keypoints, visibility, *, scale_y, scale_x,
     return kps, vis
 
 
-def pose_l2_loss(pred, target, visibility=None) -> torch.Tensor:
+def pose_l2_loss(pred, target, visibility=None, *,
+                 count=None) -> torch.Tensor:
     """Mean squared error of (B, H, W, K) heatmaps; with ``visibility``
-    (B, K) the mean over visible joints only."""
+    (B, K) the mean over visible joints only.  ``count`` replaces the
+    denominator's count (the visible joints, or without ``visibility`` the
+    elements) by one taken over more rows than these: a data-parallel
+    rank's loss is then its share of the global mean."""
     sq = (pred.to(torch.float32) - target.to(torch.float32)) ** 2
     if visibility is None:
-        return sq.mean()
+        return sq.mean() if count is None else sq.sum() / count
     vis = torch.as_tensor(visibility, device=sq.device).to(
         torch.float32)[:, None, None, :]
-    denom = torch.clamp(vis.sum() * sq.shape[1] * sq.shape[2], min=1.0)
+    n = vis.sum() if count is None else count
+    denom = torch.clamp(n * sq.shape[1] * sq.shape[2], min=1.0)
     return (sq * vis).sum() / denom

@@ -22,8 +22,9 @@ path decodes that container with OpenCV, and exits with JAX's error
 ("bad video: ...") where OpenCV is not installed.  With
 ``--exported_dir`` the checkpoint-only flags (``--config``, ``--workdir``,
 ``--int8``, ``--ema``, ``--step``, ``--set``) are usage errors.
-``--data_parallel`` is not ported yet and raises ``NotImplementedError``;
-``--device`` takes the place of ``--jax_platform``.
+``--data_parallel`` splits each batch over the local cards (one replica
+a card; one card: single-device dispatch); ``--device`` takes the place
+of ``--jax_platform``.
 """
 
 from __future__ import annotations
@@ -32,10 +33,7 @@ import argparse
 import json
 
 from attentionalpoolingaction_torch import serving
-from attentionalpoolingaction_torch.serve_cli import (
-    config_from_args,
-    unported_flags,
-)
+from attentionalpoolingaction_torch.serve_cli import config_from_args
 from attentionalpoolingaction_torch.train_cli import add_bool_flag
 
 VIDEO_SUFFIXES = ("mp4", "avi", "mov", "mkv", "webm", "video")
@@ -66,8 +64,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     add_bool_flag(p, "ema", None,
                   "use the EMA weights (requires ema_decay training)")
     add_bool_flag(p, "data_parallel", False,
-                  "shard each batch across all local devices (not ported "
-                  "yet)")
+                  "shard each batch across all local devices")
     p.add_argument("--set", action="append",
                    help="config override field=value; repeatable")
     p.add_argument("--device", default=None,
@@ -82,19 +79,19 @@ def _read(path: str) -> bytes:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    unported_flags(args)
     if args.exported_dir:
         from attentionalpoolingaction_torch import export as export_lib
 
         export_lib.reject_checkpoint_flags(
             args, ("config", "workdir", "int8", "ema", "step", "set"))
-        predictor = export_lib.load_exported(args.exported_dir,
-                                             device=args.device)
+        predictor = export_lib.load_exported(
+            args.exported_dir, data_parallel=args.data_parallel,
+            device=args.device)
     elif args.workdir:
         predictor = serving.load_predictor(
             config_from_args(args), step=args.step, int8=bool(args.int8),
             buckets=(args.batch_size,), use_ema=bool(args.ema),
-            device=args.device)
+            data_parallel=args.data_parallel, device=args.device)
     else:
         raise SystemExit("one of --workdir / --exported_dir is required")
     paths = list(args.images)

@@ -43,9 +43,10 @@ dropped and counted in ``serving_idle_timeouts_total``, not in
 With ``--exported_dir`` the checkpoint-only flags (``--config``,
 ``--workdir``, ``--int8``, ``--ema``, ``--step``, ``--calibration_images``,
 ``--set``, ``--buckets``) are usage errors, as is ``--follow``: the
-artifact fixed them all.  ``--data_parallel`` is not ported yet and raises
-``NotImplementedError``; ``--device`` takes the place of
-``--jax_platform``.
+artifact fixed them all.  ``--data_parallel`` serves one replica a local
+card where there is more than one (single-device dispatch on a one-card
+host, as JAX's rule is; ``serving.py``), and ``/healthz`` says whether
+replicas exist; ``--device`` takes the place of ``--jax_platform``.
 """
 
 from __future__ import annotations
@@ -71,14 +72,6 @@ log = logging.getLogger(__name__)
 
 DRAIN_SECONDS = 2.0
 DRAIN_BYTES = 64 * 1024
-
-
-def unported_flags(args) -> None:
-    """Raise on the CLIs' flags that are not ported yet."""
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel is not ported yet (ROADMAP.md, Queue 1: "
-            "parallel); the port serves on one device")
 
 
 def make_server(predictor: serving.BucketedPredictor, host: str, port: int,
@@ -183,7 +176,7 @@ def make_server(predictor: serving.BucketedPredictor, host: str, port: int,
                                  "dataset": predictor.cfg.dataset,
                                  "int8": predictor.int8,
                                  "buckets": list(predictor.buckets),
-                                 "data_parallel": False,
+                                 "data_parallel": bool(predictor.replicas),
                                  "latency_seconds": lat})
             elif self.path == "/metrics":      # Prometheus text format
                 body = stats.render().encode()
@@ -355,8 +348,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     add_bool_flag(p, "ema", None,
                   "serve the EMA weights (requires ema_decay training)")
     add_bool_flag(p, "data_parallel", False,
-                  "shard each batch across all local devices (not ported "
-                  "yet)")
+                  "shard each batch across all local devices")
     p.add_argument("--calibration_images", action="append",
                    help="representative image for static int8 activation "
                    "scales; repeatable (omit for per-example scales)")
@@ -406,7 +398,6 @@ def config_from_args(args) -> config_lib.TrainConfig:
 def load_served(args) -> serving.BucketedPredictor:
     """The predictor the flags ask for: the artifact of
     ``--exported_dir``, or a checkpoint of ``--workdir``."""
-    unported_flags(args)
     if args.follow:
         if args.exported_dir:
             raise SystemExit(
@@ -423,6 +414,7 @@ def load_served(args) -> serving.BucketedPredictor:
             args, ("config", "workdir", "int8", "ema", "step",
                    "calibration_images", "set", "buckets"))
         return export_lib.load_exported(args.exported_dir,
+                                        data_parallel=args.data_parallel,
                                         device=args.device)
     if not args.workdir:
         raise SystemExit("one of --workdir / --exported_dir is required")
@@ -430,7 +422,8 @@ def load_served(args) -> serving.BucketedPredictor:
         config_from_args(args), step=args.step, int8=bool(args.int8),
         buckets=[int(b) for b in (args.buckets or "1,8,32").split(",")],
         calibration_files=args.calibration_images or (),
-        use_ema=bool(args.ema), device=args.device)
+        use_ema=bool(args.ema), data_parallel=args.data_parallel,
+        device=args.device)
 
 
 def main(argv=None) -> None:

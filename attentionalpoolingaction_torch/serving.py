@@ -1,5 +1,5 @@
 """Online serving: bucketed-batch predictor + dynamic request batching.
-Port of the JAX package's ``serving.py`` on one device.
+Port of the JAX package's ``serving.py``.
 
   * **Shape bucketing.** Requests are padded up to the next batch bucket
     (default 1/8/32/128); ``warmup()`` runs every bucket once so that cuDNN
@@ -16,13 +16,19 @@ Port of the JAX package's ``serving.py`` on one device.
     crops it at the eval geometry of ``data/preprocessing.py``; the uint8
     crop stays on the device up to the forward.  Video clips come as
     ordered frames or as one container (OpenCV, where it is installed).
+  * **Data parallelism.** With ``data_parallel`` and more than one local
+    card, one replica of the weights a card: buckets round up to multiples
+    of the replicas, a bucket splits evenly over them, each part runs on
+    its card's stream, and the logits are gathered to the host.  With one
+    card (or the flag off) it is single-device dispatch, as JAX's rule
+    is.  This is the one place where a process drives several cards.
 
 The ``Predictor`` is built from Flax-layout (params, batch_stats) arrays
 through the weight bridge (``convert.py``); ``load_predictor`` builds one
 from a checkpoint of the port (the latest step, a step, or the keep-best
 slot), and ``CheckpointFollower`` hot-swaps newer steps into it;
 ``export.py`` serves an exported artifact through the same
-``BucketedPredictor``.  Not ported yet: data-parallel serving.
+``BucketedPredictor``.
 """
 
 from __future__ import annotations
@@ -257,13 +263,50 @@ class BucketedPredictor:
     byte path in front of it.
 
     Subclass ``__init__`` must set ``cfg``, ``spec``, ``int8``, ``device``,
-    ``stats``, ``buckets``, ``_weights`` and ``_fwd(weights, images) ->
-    logits`` (a numpy (B, C) float32 array of (B, H, W, 3) images, numpy
-    or tensors, and where ``supports_clips`` of (1, T, H, W, 3) clips)."""
+    ``stats``, ``buckets`` (through :meth:`_init_data_parallel`),
+    ``_weights`` (one set a replica when there are replicas) and
+    ``logits(weights, images, device=None)`` (float32 logits on
+    ``device``, default ``self.device``, of (B, H, W, 3) images, numpy or
+    tensors, and where ``supports_clips`` of (1, T, H, W, 3) clips)."""
 
     cfg: config_lib.TrainConfig
     buckets: tuple
     supports_clips = False
+    # the devices of the data-parallel replicas; empty: one device
+    replicas: tuple = ()
+
+    def _init_data_parallel(self, data_parallel: bool, buckets,
+                            devices=None) -> tuple:
+        """The data-parallel recipe of JAX's ``_init_data_parallel``:
+        with ``data_parallel`` and more than one device (``devices``,
+        default every local card of the predictor's device type), buckets
+        round UP to multiples of the device count and
+        :attr:`replicas` lists the devices; otherwise single-device
+        dispatch.  Returns the buckets."""
+        self.replicas = ()
+        if devices is None:
+            devices = ([torch.device("cuda", i)
+                        for i in range(torch.cuda.device_count())]
+                       if self.device.type == "cuda" else [self.device])
+        if not (data_parallel and len(devices) > 1):
+            return tuple(sorted(set(int(b) for b in buckets)))
+        n = len(devices)
+        self.replicas = tuple(torch.device(d) for d in devices)
+        return tuple(sorted({-(-int(b) // n) * n for b in buckets}))
+
+    def _fwd(self, weights, images) -> np.ndarray:
+        """(B, C) float32 host logits; with replicas, the batch split
+        evenly over them, each part launched on its card before any is
+        read back."""
+        if not self.replicas:
+            return self.logits(weights, images).cpu().numpy()
+        parts = (torch.tensor_split(images, len(self.replicas))
+                 if isinstance(images, torch.Tensor)
+                 else np.array_split(images, len(self.replicas)))
+        outs = [self.logits(w, part, device=dev)
+                for w, dev, part in zip(weights, self.replicas, parts)
+                if len(part)]
+        return np.concatenate([o.cpu().numpy() for o in outs])
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -424,48 +467,56 @@ class Predictor(BucketedPredictor):
     forward is the BN-folded int8 one in bfloat16 activations, with static
     activation scales calibrated on ``calibration_images`` (mean-subtracted
     float (N, S, S, 3), an array or a tensor) or, without them, per
-    example.  Both serve (1, T, S, S, 3) clips too."""
+    example.  Both serve (1, T, S, S, 3) clips too.  ``data_parallel``
+    serves one replica a local card (``devices``, default every card of
+    ``device``'s type), when there is more than one."""
 
     supports_clips = True
 
     def __init__(self, cfg: config_lib.TrainConfig, params, batch_stats, *,
                  int8: bool = False, buckets: Sequence[int] = DEFAULT_BUCKETS,
                  calibration_images=None, stats: ServingStats | None = None,
-                 data_parallel: bool = False, device=None):
-        if data_parallel:
-            raise NotImplementedError(
-                "data-parallel serving is not ported yet (ROADMAP.md, "
-                "Queue 1: parallel); serve on one device")
+                 data_parallel: bool = False, devices=None, device=None):
         self.cfg = cfg
         self.spec = get_dataset(cfg.dataset)
         self.int8 = int8
         self.device = resolve_device(device)
         self.stats = stats or ServingStats()
-        self.buckets = tuple(sorted(set(buckets)))
+        self.buckets = self._init_data_parallel(data_parallel, buckets,
+                                                devices)
         self._pooling = "avg" if cfg.pooling == "avg" else "attention"
         self._calib = (None if calibration_images is None else
                        torch.as_tensor(calibration_images,
                                        dtype=torch.float32,
                                        device=self.device))
-        self._weights = self._make_weights(params, batch_stats)
+        self._weights = self._make_all(params, batch_stats)
 
-    def _make_weights(self, params, batch_stats):
-        """Servable weights, which never change once made (reload() makes
-        new ones and swaps them in): a model holding the given weights, or
-        on the int8 path ``(quantized backbone, head, activation scales or
-        None)``, calibrated again on the retained calibration images."""
+    def _make_all(self, params, batch_stats):
+        """:meth:`_make_weights` on the predictor's device, or one set a
+        replica."""
+        if not self.replicas:
+            return self._make_weights(params, batch_stats, self.device)
+        return tuple(self._make_weights(params, batch_stats, d)
+                     for d in self.replicas)
+
+    def _make_weights(self, params, batch_stats, device):
+        """Servable weights on ``device``, which never change once made
+        (reload() makes new ones and swaps them in): a model holding the
+        given weights, or on the int8 path ``(quantized backbone, head,
+        activation scales or None)``, calibrated again on the retained
+        calibration images."""
         if not self.int8:
-            model = build_model(self.cfg, device=self.device)
+            model = build_model(self.cfg, device=device)
             return load_flax_variables(model, params, batch_stats)
         folded = inf.fold_backbone(
             {"params": params, "batch_stats": batch_stats},
-            self.cfg.backbone, device=self.device)
-        head = inf.head_weights(params, self.device)["head"]
+            self.cfg.backbone, device=device)
+        head = inf.head_weights(params, device)["head"]
         act_scales = None
         if self._calib is not None:
             act_scales = inf.scale_tensors(inf.calibrate_act_scales(
-                folded, head, [self._calib], backbone=self.cfg.backbone,
-                pooling=self._pooling), self.device)
+                folded, head, [self._calib.to(device)],
+                backbone=self.cfg.backbone, pooling=self._pooling), device)
         return inf.quantize_folded(folded), head, act_scales
 
     def forward(self, weights, images: torch.Tensor) -> torch.Tensor:
@@ -484,20 +535,19 @@ class Predictor(BucketedPredictor):
         return weights(x)["logits"].to(torch.float32)
 
     @torch.inference_mode()
-    def logits(self, weights, images) -> torch.Tensor:
-        """float32 logits on the device of (B, S, S, 3) images or (B, T,
-        S, S, 3) clips (numpy or tensors)."""
-        return self.forward(weights, as_device_tensor(images, self.device))
-
-    def _fwd(self, weights, images) -> np.ndarray:
-        return self.logits(weights, images).cpu().numpy()
+    def logits(self, weights, images, device=None) -> torch.Tensor:
+        """float32 logits on ``device`` (default the predictor's; the
+        weights' own) of (B, S, S, 3) images or (B, T, S, S, 3) clips
+        (numpy or tensors)."""
+        return self.forward(weights,
+                            as_device_tensor(images, device or self.device))
 
     def reload(self, params, batch_stats, *, step=None):
         """Hot-swap the served weights: in-flight dispatches hold the old
         ones and finish on them; requests after the (atomic) swap see the
         new ones.  The int8 path folds, calibrates (on the same retained
         images) and quantizes the new weights."""
-        self._weights = self._make_weights(params, batch_stats)
+        self._weights = self._make_all(params, batch_stats)
         self.stats.inc("serving_reloads_total")
         if step is not None:
             self.step = int(step)
@@ -702,7 +752,8 @@ def load_predictor(cfg: config_lib.TrainConfig, *, step=None,
                    buckets: Sequence[int] = DEFAULT_BUCKETS,
                    calibration_files: Sequence[str] = (),
                    data_parallel: bool = False,
-                   use_ema: bool = False, device=None) -> Predictor:
+                   use_ema: bool = False, devices=None,
+                   device=None) -> Predictor:
     """Restore the latest (or ``step``) checkpoint under ``cfg.workdir``
     and build a Predictor on ``device`` (default ``cuda``).  ``step`` may
     also be the string ``"best"``: the keep-best slot
@@ -711,12 +762,9 @@ def load_predictor(cfg: config_lib.TrainConfig, *, step=None,
     ``int8`` serves the quantized BN-folded path; with
     ``calibration_files`` (paths of representative JPEG or PNG images,
     decoded and cropped on the device to mean-subtracted float32) its
-    activation scales are static, else per example.  ``data_parallel`` is
-    not ported yet and raises."""
-    if data_parallel:
-        raise NotImplementedError(
-            "data-parallel serving is not ported yet (ROADMAP.md, Queue 1: "
-            "parallel); serve on one device")
+    activation scales are static, else per example.  ``data_parallel``
+    serves a replica on each of ``devices`` (default every local card),
+    where there is more than one."""
     device = resolve_device(device)
     mgr, step = ckpt_lib.manager_for_step(cfg.workdir, step)
     restored = ckpt_lib.restore_for_eval(mgr, step=step)
@@ -733,6 +781,7 @@ def load_predictor(cfg: config_lib.TrainConfig, *, step=None,
         calib = torch.stack(crops)
     predictor = Predictor(cfg, params, batch_stats, int8=int8,
                           buckets=buckets, calibration_images=calib,
+                          data_parallel=data_parallel, devices=devices,
                           device=device)
     # served-step bookkeeping: CheckpointFollower compares against this
     # to decide when a newer committed step warrants a hot reload

@@ -30,9 +30,21 @@ clip, the EMA, the losses and the logits stay float32.  A video dataset
 trains on one fresh frame per video an epoch, or with ``clip_frames`` > 1
 on TSN clips of (B, T, H, W, 3) (``data/grain_pipeline.py``).
 
-Not ported yet, and raising ``NotImplementedError``: a mesh
-(``mesh_shape`` over more than one device), ``zero1`` and
-``remat_units``.
+Over a mesh (``parallel/mesh.py``: one process a card, joined by
+``parallel.multihost.setup``), ``create_state(..., mesh=)`` and
+``make_train_step(..., mesh)`` train data-parallel: each rank takes its
+share of the batch's rows, each loss that divides by a count divides by
+the global one (each rank's loss is its share of the global loss), the
+gradients are all-reduced (summed) over the ``data`` axis as flat
+buckets, batch norm's train-mode statistics are the global batch's, the
+clip reads the reduced gradients, and every rank makes the same update.
+With a ``model`` axis the head's classes shard over it
+(``models/heads.py``); with ``zero1`` each rank keeps a slice of the
+optimizer's state (``parallel/zero1.py``).  ``train`` builds a mesh only
+when there is more than one process and ``mesh_shape`` asks for more than
+one device, as the JAX package does; otherwise it trains alone.
+
+Not ported yet, and raising ``NotImplementedError``: ``remat_units``.
 """
 
 from __future__ import annotations
@@ -73,8 +85,14 @@ from attentionalpoolingaction_torch.data.preprocessing import (
 from attentionalpoolingaction_torch.device import resolve_device
 from attentionalpoolingaction_torch.models.action_model import ActionModel
 from attentionalpoolingaction_torch.models.factory import get_model
-from attentionalpoolingaction_torch.models.resnet import feature_size
+from attentionalpoolingaction_torch.models.resnet import (
+    BatchNorm,
+    feature_size,
+)
 from attentionalpoolingaction_torch.ops import heatmap as hm
+from attentionalpoolingaction_torch.parallel import mesh as mesh_lib
+from attentionalpoolingaction_torch.parallel import multihost
+from attentionalpoolingaction_torch.parallel.zero1 import Zero1Optimizer
 
 __all__ = [
     "TrainState", "apply_gradients", "batch_to_device", "build_model",
@@ -94,6 +112,80 @@ class TrainState:
     # parameter EMA by parameter name (config.ema_decay, slim's
     # moving_average_decay); None when off
     ema_params: dict[str, torch.Tensor] | None = None
+    # the mesh the state was made for, and its sharding plan (None alone)
+    mesh: object = None
+    plan: mesh_lib.ShardingPlan | None = None
+
+    # -- the whole state, as one process holds it -------------------------
+    # Under tensor parallelism the head's class shards are gathered over
+    # the model axis (collectives: every rank calls these); ZeRO-1's
+    # optimizer gathers its own slices.  A payload is the same on every
+    # topology, so a checkpoint moves between them.
+
+    def _sharded(self) -> dict[str, mesh_lib.LeafPlan]:
+        if self.plan is None:
+            return {}
+        return {n: pl for n, pl in self.plan.params.items()
+                if pl.kind == "model"}
+
+    def _gather(self, tensors: dict, sharded: dict) -> dict:
+        group = mesh_lib.axis_group(self.mesh, "model")
+        return {n: (mesh_lib.all_gather_cat(t, sharded[n].dim, group)
+                    if n in sharded else t) for n, t in tensors.items()}
+
+    def _slice(self, tensors: Mapping, sharded: dict) -> dict:
+        i = mesh_lib.axis_index(self.mesh, "model")
+        m = mesh_lib.axis_size(self.mesh, "model")
+        return {n: (mesh_lib.shard_slice(t, sharded[n], i, m)
+                    if n in sharded else t) for n, t in tensors.items()}
+
+    def full_state_dict(self) -> dict[str, torch.Tensor]:
+        """The model's state dict with the head whole."""
+        return self._gather(self.model.state_dict(), self._sharded())
+
+    def full_ema(self) -> dict[str, torch.Tensor] | None:
+        if self.ema_params is None:
+            return None
+        return self._gather(dict(self.ema_params), self._sharded())
+
+    def payload(self) -> dict:
+        """What a checkpoint holds: ``step``, ``model`` (the whole state
+        dict), ``optimizer`` (the whole optimizer state dict) and, when
+        the run keeps one, ``ema_params``."""
+        sharded = self._sharded()
+        opt = self.optimizer.state_dict()
+        if sharded:
+            names = optimizer_param_names(self.model)
+            opt = {"param_groups": opt["param_groups"],
+                   "state": {k: self._gather(buf, {
+                       b: sharded[names[int(k)]] for b, v in buf.items()
+                       if names[int(k)] in sharded and v.ndim})
+                       for k, buf in opt["state"].items()}}
+        out = {"step": int(self.step), "model": self.full_state_dict(),
+               "optimizer": opt}
+        if self.ema_params is not None:
+            out["ema_params"] = self.full_ema()
+        return out
+
+    def load_payload(self, payload: Mapping) -> None:
+        """Load a :meth:`payload`, in place, keeping this rank's shards."""
+        sharded = self._sharded()
+        self.model.load_state_dict(self._slice(payload["model"], sharded))
+        opt = payload["optimizer"]
+        if sharded:
+            names = optimizer_param_names(self.model)
+            opt = {"param_groups": opt["param_groups"],
+                   "state": {k: self._slice(buf, {
+                       b: sharded[names[int(k)]] for b, v in buf.items()
+                       if names[int(k)] in sharded and v.ndim})
+                       for k, buf in opt["state"].items()}}
+        self.optimizer.load_state_dict(opt)
+        if self.ema_params is not None:
+            ema = self._slice(payload["ema_params"], sharded)
+            with torch.no_grad():
+                for name, t in self.ema_params.items():
+                    t.copy_(ema[name])
+        self.step = int(payload["step"])
 
 
 def normalize_images(images: torch.Tensor) -> torch.Tensor:
@@ -172,15 +264,27 @@ def decay_mask(model: nn.Module) -> dict[str, bool]:
     return mask
 
 
-def make_optimizer(cfg: config_lib.TrainConfig,
-                   model: nn.Module) -> torch.optim.Optimizer:
+def optimizer_param_names(model: nn.Module) -> list[str]:
+    """The parameter names in the order of the optimizer's state indices:
+    the decayed ones, then the rest, each in the model's order."""
+    mask = decay_mask(model)
+    names = [n for n, _ in model.named_parameters()]
+    return ([n for n in names if mask[n]]
+            + [n for n in names if not mask[n]])
+
+
+def make_optimizer(cfg: config_lib.TrainConfig, model: nn.Module,
+                   tensors: dict[str, torch.Tensor] | None = None
+                   ) -> torch.optim.Optimizer:
     """SGD with momentum (or AdamW) over two groups: the decayed
     parameters of :func:`decay_mask` and the rest.  The JAX package's
     chain is clip -> decayed weights -> SGD: the step clips the gradients
     before ``step()``, which adds the decay and then the momentum; it also
-    sets each step's learning rate."""
+    sets each step's learning rate.  ``tensors`` (by parameter name)
+    replaces the parameters it names (ZeRO-1's slices)."""
     mask = decay_mask(model)
-    named = list(model.named_parameters())
+    named = [(n, (tensors or {}).get(n, p))
+             for n, p in model.named_parameters()]
     groups = [
         {"params": [p for n, p in named if mask[n]],
          "weight_decay": cfg.weight_decay},
@@ -199,10 +303,14 @@ def make_optimizer(cfg: config_lib.TrainConfig,
 # -- losses -------------------------------------------------------------------
 
 def classification_loss(logits, labels, *, multi_label: bool,
-                        label_smoothing: float = 0.0, mask=None):
+                        label_smoothing: float = 0.0, mask=None,
+                        count=None):
     """Softmax cross entropy of integer labels (MPII, HMDB) or per-class
     sigmoid cross entropy of multi-hot labels (HICO), averaged over the
-    batch or over the examples ``mask`` keeps."""
+    batch or over the examples ``mask`` keeps.  ``count`` replaces that
+    count (the rows, or the mask's sum) by one taken over more rows than
+    these: a data-parallel rank's loss is then its share of the global
+    mean."""
     if multi_label:
         per = F.binary_cross_entropy_with_logits(
             logits, labels.to(logits.dtype), reduction="none").sum(-1)
@@ -211,8 +319,9 @@ def classification_loss(logits, labels, *, multi_label: bool,
                               label_smoothing=label_smoothing)
     if mask is not None:
         mask = mask.to(per.dtype)
-        return (per * mask).sum() / mask.sum().clamp(min=1.0)
-    return per.mean()
+        n = mask.sum() if count is None else count
+        return (per * mask).sum() / n.clamp(min=1.0)
+    return per.mean() if count is None else per.sum() / count
 
 
 def pose_targets(batch: Mapping[str, torch.Tensor], *, image_size: int,
@@ -237,23 +346,46 @@ def pose_targets(batch: Mapping[str, torch.Tensor], *, image_size: int,
             torch.cat([vis, torch.ones_like(vis[:, :1])], dim=-1))
 
 
-def make_loss_fn(spec: DatasetSpec, cfg: config_lib.TrainConfig):
+def make_loss_fn(spec: DatasetSpec, cfg: config_lib.TrainConfig,
+                 group=None):
     """``loss_fn(model, batch, train) -> (total, metrics)``.  With
     ``train`` the model runs in train mode (batch norm normalizes with the
     batch statistics and moves its running ones, unless ``freeze_bn``);
     metrics are detached device scalars ``loss/cls``, ``loss/pose`` (pose
-    attention on a dataset with pose) and ``loss/total``."""
+    attention on a dataset with pose) and ``loss/total``.
+
+    With ``group`` (the data axis's process group) each count a loss
+    divides by (the rows or the mask's sum, the visible joints) is summed
+    over the group first, in one all-reduce, so that the loss is this
+    rank's share of the global batch's loss."""
+    with_pose = cfg.pooling == "pose_attention" and spec.has_pose
+
+    def global_counts(batch, visb):
+        mask = batch.get("mask")
+        local = [mask.to(torch.float32).sum() if mask is not None else
+                 torch.tensor(float(batch["label"].shape[0]),
+                              device=batch["label"].device)]
+        if with_pose:
+            local.append(visb.sum())
+        counts = torch.stack(local).detach()
+        torch.distributed.all_reduce(counts, group=group)
+        return counts
 
     def loss_fn(model: ActionModel, batch, train: bool):
         model.train(train)
+        if with_pose:
+            target, visb = pose_targets(batch, image_size=cfg.image_size)
+        counts = (global_counts(batch, visb if with_pose else None)
+                  if group is not None else [None, None])
         out = model(normalize_images(batch["image"]))
         total = classification_loss(
             out["logits"], batch["label"], multi_label=spec.multi_label,
-            label_smoothing=cfg.label_smoothing, mask=batch.get("mask"))
+            label_smoothing=cfg.label_smoothing, mask=batch.get("mask"),
+            count=counts[0])
         metrics = {"loss/cls": total.detach()}
-        if cfg.pooling == "pose_attention" and spec.has_pose:
-            target, visb = pose_targets(batch, image_size=cfg.image_size)
-            pose = hm.pose_l2_loss(out["pose_heatmaps"], target, visb)
+        if with_pose:
+            pose = hm.pose_l2_loss(out["pose_heatmaps"], target, visb,
+                                   count=counts[1])
             metrics["loss/pose"] = pose.detach()
             total = total + cfg.pose_loss_weight * pose
         metrics["loss/total"] = total.detach()
@@ -265,17 +397,13 @@ def make_loss_fn(spec: DatasetSpec, cfg: config_lib.TrainConfig):
 # -- state and step -----------------------------------------------------------
 
 def _check_ported(cfg: config_lib.TrainConfig) -> None:
-    if math.prod(cfg.mesh_shape or (1,)) > 1 or cfg.zero1:
-        raise NotImplementedError(
-            "training over a mesh (mesh_shape, zero1) is not ported yet; "
-            "the port trains on one device")
     if cfg.remat_units:
         raise NotImplementedError("remat_units is not ported yet")
 
 
 def create_state(cfg: config_lib.TrainConfig, *, device=None,
-                 variables: tuple[Mapping, Mapping] | None = None
-                 ) -> tuple[TrainState, DatasetSpec]:
+                 variables: tuple[Mapping, Mapping] | None = None,
+                 mesh=None) -> tuple[TrainState, DatasetSpec]:
     """The train state on ``device`` (default ``cuda``) and the dataset.
     The weights are drawn as Flax draws them from ``cfg.seed``, through
     an explicit ``torch.Generator``, or come from ``variables``, Flax-layout
@@ -285,7 +413,12 @@ def create_state(cfg: config_lib.TrainConfig, *, device=None,
     excluded (the reference's fine-tune init): a file path is a TF-slim
     checkpoint (V2 prefix or V1 file), converted on the fly; a directory
     is a port ``CheckpointManager`` directory of an earlier run, whose
-    latest step gives the backbone's parameters and BN statistics."""
+    latest step gives the backbone's parameters and BN statistics.
+
+    With a ``mesh`` the state is this rank's part of the mesh's state, by
+    the plan of :func:`parallel.mesh.state_shardings`: batch norm reduces
+    over the data axis, the head keeps its class shard over a model axis,
+    and with ``zero1`` the optimizer keeps this rank's slices."""
     spec = get_dataset(cfg.dataset)
     generator = torch.Generator().manual_seed(cfg.seed)
     model = build_model(cfg, device=device, generator=generator)
@@ -315,11 +448,52 @@ def create_state(cfg: config_lib.TrainConfig, *, device=None,
             {"params": params, "batch_stats": batch_stats}, converted,
             exclude=("head", "pose_head"))
         load_flax_variables(model, merged["params"], merged["batch_stats"])
+    plan = None
+    if mesh is not None:
+        plan = _parallelize(model, cfg, mesh)
     ema = ({n: p.detach().clone() for n, p in model.named_parameters()}
            if cfg.ema_decay else None)
     return TrainState(step=0, model=model,
-                      optimizer=make_optimizer(cfg, model),
-                      ema_params=ema), spec
+                      optimizer=_optimizer(cfg, model, mesh, plan),
+                      ema_params=ema, mesh=mesh, plan=plan), spec
+
+
+def _parallelize(model: ActionModel, cfg: config_lib.TrainConfig,
+                 mesh) -> mesh_lib.ShardingPlan:
+    """Set ``model`` up for its place on ``mesh``, in place, and return
+    the plan: batch norm reduces over the data axis (when it has more than
+    one rank), and the head keeps its class shard where the plan shards
+    it."""
+    model_axis = mesh_lib.model_axis_of(mesh)
+    plan = mesh_lib.state_shardings(
+        mesh, model, model_axis=model_axis,
+        zero1_axis="data" if cfg.zero1 else None)
+    if mesh_lib.axis_size(mesh, "data") > 1:
+        group = mesh_lib.axis_group(mesh, "data")
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.sync_group = group
+    if any(pl.kind == "model" for pl in plan.params.values()):
+        model.head.shard_classes(mesh_lib.axis_group(mesh, "model"),
+                                 mesh_lib.axis_index(mesh, "model"),
+                                 mesh_lib.axis_size(mesh, "model"))
+    return plan
+
+
+def _optimizer(cfg, model, mesh, plan):
+    names = optimizer_param_names(model)
+    if plan is None or not any(plan.opt_state[n].kind == "zero1"
+                               for n in names):
+        return make_optimizer(cfg, model)
+    params = dict(model.named_parameters())
+
+    def make_inner(tensors):
+        return make_optimizer(cfg, model, dict(zip(names, tensors)))
+
+    return Zero1Optimizer(
+        make_inner, names, [params[n] for n in names],
+        [plan.opt_state[n] for n in names], mesh_lib.axis_group(mesh, "data"),
+        mesh_lib.axis_index(mesh, "data"), mesh_lib.axis_size(mesh, "data"))
 
 
 def apply_gradients(state: TrainState, cfg: config_lib.TrainConfig,
@@ -335,7 +509,7 @@ def apply_gradients(state: TrainState, cfg: config_lib.TrainConfig,
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     grads = [p.grad for p in params]
-    norm = torch.nn.utils.get_total_norm(grads)
+    norm = _global_norm(state, grads)
     if cfg.grad_clip_norm:
         torch._foreach_mul_(
             grads, torch.clamp(cfg.grad_clip_norm / norm, max=1.0))
@@ -359,7 +533,25 @@ def apply_gradients(state: TrainState, cfg: config_lib.TrainConfig,
     return norm
 
 
-def make_train_step(spec: DatasetSpec, cfg: config_lib.TrainConfig):
+def _global_norm(state: TrainState, grads) -> torch.Tensor:
+    """The global norm of the gradients; under tensor parallelism the
+    class shards' squares are summed over the model axis first."""
+    plan = state.plan
+    if plan is None or plan.model_size <= 1:
+        return torch.nn.utils.get_total_norm(grads)
+    sharded = [plan.params[n].kind == "model"
+               for n, _ in state.model.named_parameters()]
+    whole = torch.nn.utils.get_total_norm(
+        [g for g, s in zip(grads, sharded) if not s]).square()
+    shard = torch.nn.utils.get_total_norm(
+        [g for g, s in zip(grads, sharded) if s]).square()
+    torch.distributed.all_reduce(
+        shard, group=mesh_lib.axis_group(state.mesh, "model"))
+    return (whole + shard).sqrt()
+
+
+def make_train_step(spec: DatasetSpec, cfg: config_lib.TrainConfig,
+                    mesh=None):
     """``step_fn(state, batch) -> (state, metrics)``: one update of
     ``state`` in place from a batch of tensors on the model's device.
 
@@ -367,17 +559,32 @@ def make_train_step(spec: DatasetSpec, cfg: config_lib.TrainConfig):
     microbatches, run in turn: batch norm's running statistics chain
     through them, and the gradients and metrics are their means.  Metrics
     (the losses and ``grad_norm``, the global norm before the clip) stay
-    on the device."""
+    on the device.
+
+    With a ``mesh`` (and a state made for it, ``create_state(mesh=)``) the
+    batch is this rank's rows: the losses divide by global counts, the
+    gradients are all-reduced over the data axis before the clip, and the
+    metrics are the global batch's, equal on every rank."""
     _check_ported(cfg)
-    loss_fn = make_loss_fn(spec, cfg)
+    data = mesh_lib.axis_size(mesh, "data")
+    group = mesh_lib.axis_group(mesh, "data")
+    loss_fn = make_loss_fn(spec, cfg, group)
     schedule = make_learning_rate(cfg)
     accum = max(int(cfg.grad_accum_steps or 1), 1)
 
     def step_fn(state: TrainState, batch: Mapping[str, torch.Tensor]):
         b = batch["image"].shape[0]
         if b % accum:
+            if mesh is not None:
+                raise ValueError(
+                    f"microbatch {b * data / accum:g} (batch {b * data} / "
+                    f"accum {accum}) not divisible by the data-axis size "
+                    f"{data}")
             raise ValueError(f"per-host batch {b} not divisible by "
                              f"grad_accum_steps {accum}")
+        if state.mesh is not mesh:
+            raise ValueError("the state was made for another mesh than "
+                             "the step's (create_state(mesh=...))")
         m = b // accum
         state.optimizer.zero_grad(set_to_none=True)
         micro = []
@@ -392,6 +599,18 @@ def make_train_step(spec: DatasetSpec, cfg: config_lib.TrainConfig):
                                  if p.grad is not None], float(accum))
             metrics = {k: torch.stack([mt[k] for mt in micro]).mean()
                        for k in micro[0]}
+        if group is not None:
+            for p in state.model.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            mesh_lib.all_reduce_flat(
+                [p.grad for p in state.model.parameters()], group)
+            # each rank's losses are its shares: their sum is the global
+            # batch's
+            keys = sorted(metrics)
+            shares = torch.stack([metrics[k] for k in keys])
+            torch.distributed.all_reduce(shares, group=group)
+            metrics = dict(zip(keys, shares.unbind()))
         metrics["grad_norm"] = apply_gradients(state, cfg, schedule)
         return state, metrics
 
@@ -433,18 +652,23 @@ def _resume(cfg: config_lib.TrainConfig, state: TrainState,
 
 
 def _train_input(cfg: config_lib.TrainConfig, spec: DatasetSpec,
-                 train_iter: Iterable | None, dev: torch.device):
+                 train_iter: Iterable | None, dev: torch.device, *,
+                 batch_size: int, shard_index: int = 0,
+                 shard_count: int = 1):
     """``(batches, stateful, owned)``: the iterator the loop pulls from
     (prefetched to ``dev``, echoed with ``data_echo``), the outermost
     wrapper whose state is checkpointed (None for a stateless iterator)
-    and the pipeline this call built (None for the caller's)."""
+    and the pipeline this call built (None for the caller's), which reads
+    shard ``shard_index`` of ``shard_count`` of the records in batches of
+    ``batch_size`` rows."""
     owned = None
     if train_iter is None:
         if not cfg.train_pattern:
             raise ValueError("no train_iter and no cfg.train_pattern")
         video_sampling = spec.is_video and cfg.video_frame_sampling
         owned = train_iter = grain_pipeline.make_train_iterator(
-            cfg.train_pattern, spec, batch_size=cfg.batch_size,
+            cfg.train_pattern, spec, batch_size=batch_size,
+            shard_index=shard_index, shard_count=shard_count,
             image_size=cfg.image_size, resize_min=cfg.resize_min_resolved,
             resize_max=cfg.resize_max_resolved, seed=cfg.seed,
             num_workers=cfg.grain_workers,
@@ -488,19 +712,40 @@ def train(cfg: config_lib.TrainConfig, *, train_iter: Iterable | None = None,
     and restored with it into the outermost wrapper.  ``stop_event`` (a
     ``threading.Event``): when set, by the caller or by the SIGTERM
     handler installed here (on the main thread, with a manager), the loop
-    checkpoints the step in flight and returns."""
+    checkpoints the step in flight and returns.
+
+    In a job of several processes (``parallel.multihost.setup``) each
+    process trains on its share of ``cfg.batch_size`` (the global batch)
+    and reads its shard of the records; with a ``mesh_shape`` of more
+    than one device the processes form the mesh (``parallel/mesh.py``)
+    and train as one.  Saves are collective (process 0 writes the state,
+    each process its own iterator file), and the stop is agreed on
+    across processes one step late (``multihost.FlagAllReduce``), so that
+    every process checkpoints the same step."""
     _check_clips(cfg, get_dataset(cfg.dataset))
     dev = resolve_device(device)
-    state, spec = create_state(cfg, device=dev)
+    world, rank = multihost.process_count(), multihost.process_index()
+    mesh = None
+    if world > 1 and math.prod(cfg.mesh_shape or (1,)) > 1:
+        mesh = mesh_lib.make_mesh(cfg.mesh_shape, cfg.mesh_axes)
+    # ranks along a model axis read the same rows
+    shards = mesh_lib.axis_size(mesh, "data") if mesh is not None else world
+    shard = mesh_lib.axis_index(mesh, "data") if mesh is not None else rank
+    if cfg.batch_size % shards:
+        raise ValueError(f"global batch_size {cfg.batch_size} not divisible "
+                         f"by process_count {shards}")
+    state, spec = create_state(cfg, device=dev, mesh=mesh)
     resume_step = (checkpoint_manager.latest_step()
                    if checkpoint_manager is not None else None)
     if resume_step is not None:
         _resume(cfg, state, checkpoint_manager)
-    step_fn = make_train_step(spec, cfg)
+    step_fn = make_train_step(spec, cfg, mesh)
 
-    batches, stateful_iter, owned = _train_input(cfg, spec, train_iter, dev)
+    batches, stateful_iter, owned = _train_input(
+        cfg, spec, train_iter, dev, batch_size=cfg.batch_size // shards,
+        shard_index=shard, shard_count=shards)
     if stateful_iter is not None and resume_step is not None:
-        iter_path = _grain_state_path(checkpoint_manager, resume_step)
+        iter_path = _grain_state_path(checkpoint_manager, resume_step, rank)
         if iter_path.exists():
             stateful_iter.set_state(_normalize_iter_state(
                 json.loads(iter_path.read_text()), cfg.data_echo))
@@ -509,8 +754,10 @@ def train(cfg: config_lib.TrainConfig, *, train_iter: Iterable | None = None,
     def save_checkpoint(at_step: int):
         ckpt_lib.save(checkpoint_manager, state)
         if stateful_iter is not None:
-            _grain_state_path(checkpoint_manager, at_step).write_text(
+            _grain_state_path(checkpoint_manager, at_step, rank).write_text(
                 json.dumps(stateful_iter.get_state()))
+        multihost.barrier()
+        if stateful_iter is not None and rank == 0:
             _gc_grain_state(checkpoint_manager, keep_step=at_step)
 
     # Preemptions arrive as SIGTERM.  The handler only sets the flag; the
@@ -529,6 +776,8 @@ def train(cfg: config_lib.TrainConfig, *, train_iter: Iterable | None = None,
     num_steps = num_steps or cfg.num_steps
     history = []
     t0 = time.time()
+    flag_reduce = multihost.FlagAllReduce()
+    pending_flag = flag_reduce.dispatch(False)
     try:
         for _ in range(max(num_steps - state.step, 0)):
             batch = batch_to_device(next(batches), dev)
@@ -542,8 +791,13 @@ def train(cfg: config_lib.TrainConfig, *, train_iter: Iterable | None = None,
             for hook in hooks:
                 hook(step, state, metrics)
             # read the stop AFTER the hooks, so that a stop raised during
-            # this step (signal or hook) checkpoints THIS step
-            stopping = stop_event.is_set()
+            # this step (signal or hook) checkpoints THIS step; several
+            # processes agree on last step's flags instead
+            if world == 1:
+                stopping = stop_event.is_set()
+            else:
+                stopping = flag_reduce.read(pending_flag)
+                pending_flag = flag_reduce.dispatch(stop_event.is_set())
             if checkpoint_manager is not None and (
                     step % cfg.checkpoint_every == 0 or step == num_steps
                     or stopping):
@@ -599,10 +853,13 @@ def _normalize_iter_state(state, data_echo: int):
     return state
 
 
-def _grain_state_path(manager, step: int) -> pathlib.Path:
-    """The iterator state file beside the step directories, named as the
-    JAX package names process 0's (the port runs one process)."""
-    return pathlib.Path(manager.directory) / f"grain_iter_{step}_p0.json"
+def _grain_state_path(manager, step: int,
+                      process_index: int = 0) -> pathlib.Path:
+    """Process ``process_index``'s iterator state file beside the step
+    directories, named as the JAX package names it: each process reads its
+    own shard, and saves and restores its own position."""
+    return (pathlib.Path(manager.directory)
+            / f"grain_iter_{step}_p{process_index}.json")
 
 
 def _gc_grain_state(manager, keep_step: int) -> None:

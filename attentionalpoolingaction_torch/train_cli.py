@@ -17,8 +17,19 @@ eval scalars as TensorBoard event files into the workdir, and with
 ``<workdir>/checkpoints_best``.  ``--attn_summary_every N`` writes
 attention-map overlays of a fixed probe batch (``utils/visualize.py``) as
 image summaries into the event file every N steps.  ``--device`` takes the
-place of ``--jax_platform``; ``--multiprocess`` is not ported yet and
-raises.
+place of ``--jax_platform``.
+
+``--multiprocess`` joins a job of one process a card
+(``parallel.multihost.setup``: NCCL on ``cuda:LOCAL_RANK``, gloo with
+``--device cpu``), from the environment ``torchrun`` sets (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``):
+
+    torchrun --nproc_per_node 4 -m attentionalpoolingaction_torch.train_cli \
+        --multiprocess --config mpii_rank5_450_mesh --set mesh_shape='(4,)' \
+        --train_pattern=... --workdir=...
+
+Each process trains on its share of the global batch over the mesh of
+``mesh_shape``; only process 0 writes the event files.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ from attentionalpoolingaction_torch import checkpoint as ckpt_lib
 from attentionalpoolingaction_torch import config as config_lib
 from attentionalpoolingaction_torch import train as train_lib
 from attentionalpoolingaction_torch.device import resolve_device
+from attentionalpoolingaction_torch.parallel import multihost
 from attentionalpoolingaction_torch.utils import metrics_writer
 
 log = logging.getLogger(__name__)
@@ -66,7 +78,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", default=None,
                    help="torch device to train on (default cuda)")
     add_bool_flag(p, "multiprocess", False,
-                  "multi-process training (not ported yet)")
+                  "join a multi-process job (torchrun's environment): one "
+                  "process a card")
     p.add_argument("--attn_summary_every", type=int, default=0,
                    help="attention-map overlay images in the event file "
                    "every N steps (0 = off)")
@@ -81,9 +94,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None):
     """Train as the flags say; returns the final train state."""
     args = parse_args(argv)
+    device = None
     if args.multiprocess:
-        raise NotImplementedError("--multiprocess is not ported yet: the "
-                                  "port trains on one device")
+        device = multihost.setup(device=args.device)
     overrides = config_lib.parse_overrides(args.set)
     for key in ("train_pattern", "eval_pattern", "workdir",
                 "init_checkpoint"):
@@ -91,12 +104,13 @@ def main(argv=None):
         if val is not None:
             overrides[key] = val
     cfg = config_lib.get_config(args.config, **overrides)
-    device = resolve_device(args.device)
+    device = device or resolve_device(args.device)
     log.info("config: %s", cfg)
 
     mgr = ckpt_lib.make_manager(cfg.workdir + "/checkpoints",
                                 max_to_keep=cfg.max_checkpoints)
-    writer = metrics_writer.make_writer(cfg.workdir)
+    writer = metrics_writer.make_writer(
+        cfg.workdir, just_logging=multihost.process_index() != 0)
     hooks = [metrics_writer.make_train_hook(writer, cfg.log_every)]
     if args.eval_every and cfg.eval_pattern:
         from attentionalpoolingaction_torch import evaluate as eval_lib

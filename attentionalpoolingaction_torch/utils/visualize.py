@@ -242,6 +242,12 @@ def make_attention_summary_hook(cfg, writer, every: int,
         if every <= 0 or step % every:
             return
         model = state.model
+        if model.head.class_group is not None:
+            # a class shard of the head (a model axis): the maps need
+            # every class, so they are drawn from the whole state
+            whole = train_lib.build_model(cfg, device=_model_device(model))
+            whole.load_state_dict(state.full_state_dict())
+            model = whole
         if "images" not in probe:
             cfg_probe = cfg
             if not cfg.eval_pattern:

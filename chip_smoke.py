@@ -156,7 +156,33 @@ Phases; any failure raises and the process exits non-zero:
    counted) and with ``--clip`` on 8 frames (the temporal attention sums
    to 1), and ``train_cli --attn_summary_every 2`` for 4 steps from records
    (attention/* images at steps 2 and 4 in the event file).
-10. A ``kernels`` JSON line (``launches`` from phase 3's serving run for
+10. The mesh (``parallel/``) and BASELINE config #5,
+   ``mpii_rank5_450_mesh`` (ResNet-101, rank 5, 450 px, batch 64, bf16
+   backbone, ``freeze_bn``, 3-crop eval), at full width.  (a) One rank
+   over a real NCCL communicator, in a worker process of this script
+   joined from torchrun's environment (``RANK=0 WORLD_SIZE=1``): the step
+   on a ``(1,)`` mesh against the same step with no process group, from
+   the same seeded state and batch, within the gap of two no-group steps
+   measured beside it; the mesh step's median ms, images/s and
+   ``torch.cuda.max_memory_allocated`` (if batch 64 does not fit, it
+   says so and trains with ``grad_accum_steps=2``, the same update under
+   ``freeze_bn``); ``train_cli --multiprocess`` for 3 steps from 128
+   records, ``eval_cli --multiprocess`` of 16 records with 3 crops, and
+   the eval loop on injected 3-crop batches (images/s), each counted.
+   Then ``serve_cli --data_parallel`` over the run's checkpoint in this
+   process: on one card single-device dispatch (``/healthz`` says
+   ``data_parallel`` false), 4 ``/predict`` calls, counted.  (b) Two
+   ranks on the one card over gloo (NCCL refuses two ranks on one
+   device), resnet_v1_50 at 96 px, TF32 off: which collectives gloo takes
+   for CUDA tensors (each tried), the data-parallel step against one
+   process (loss and parameters 1e-4), ZeRO-1 against it (1e-5), the
+   ``(1, 2)`` data x model step of ``hico`` (its 600 classes 300 a rank)
+   against one process (1e-4), a stop raised on rank 1 after step 1 seen
+   by both at step 2, the gathered eval of 5 records (3 and 2 rows)
+   against this process's mAP (1e-12), every kernel counted on every
+   rank, and the data-parallel step's ms (gloo through the host, not
+   NCCL: it says nothing of NCCL's speed).
+11. A ``kernels`` JSON line (``launches`` from phase 3's serving run for
    the forward pooling kernels, from phase 4's ``train`` for
    ``pool_backward`` and from phase 6's ``train_cli`` for the colour
    kernel; ``train_launches`` from phase 4's ``train``, ``eval_launches``
@@ -166,12 +192,27 @@ Phases; any failure raises and the process exits non-zero:
    ``int8_serve_launches``, ``int8_eval_launches`` and
    ``clip8_int8_serve_launches`` from phase 8's, ``export_serve_launches``
    (serving from the artifact over HTTP) and ``visualize_launches``
-   (``visualize_cli``) from phase 9's, each kernel counted over each run),
-   then the last line ``{"ok": true, "device": {...}}``.
+   (``visualize_cli``) from phase 9's, ``mesh5_step_launches``,
+   ``mesh5_train_launches``, ``mesh5_eval_launches`` and
+   ``mesh5_serve_launches`` from phase 10's config #5 runs and
+   ``gloo2_dp_launches``, ``gloo2_zero1_launches`` and ``gloo2_tp_launches``
+   (one count a rank) from its two gloo ranks, each kernel counted over
+   each run), then the last line ``{"ok": true, "device": {...}}``.
 
 The kernels (``csrc/attn_pool.cu``, ``csrc/attn_pool_backward.cu``,
 ``csrc/jpeg_decode.cu`` with ``nvcc``, ``csrc/tfrecord_index.cc`` with the
 host compiler) build at once, each in its own thread, before phase 2.
+
+``--cards N`` runs, instead of the phases, the mesh across N cards (one
+process a card over NCCL, rank r on card r): resnet_v1_50 at 96 px with
+TF32 off, the data-parallel step against one process, ZeRO-1 against it,
+the ``(N/2, 2)`` data x model step of ``hico`` against one process, the
+stop raised on the last rank, the gathered eval of 5 records against one
+process; config #5 over the ``(N,)`` mesh at 64/N rows a card against one
+card with the whole batch, timed in the same call; and data-parallel
+serving over the N cards in one process (one replica a card):
+``mpii_rank1_224``'s probabilities against one card's, config #5 at
+bucket 32 against one card in turns, counted.
 
 ``--profile`` adds a torch.profiler breakdown of a call at each bucket, of
 one training step, of a pipelined pass of phase 5's eval loop, in phase
@@ -1722,8 +1763,8 @@ def digesting(digests):
     the card, after the pipeline, prefetch and echo) to ``digests``."""
     make = train.make_train_step
 
-    def make_digesting(spec, cfg):
-        step = make(spec, cfg)
+    def make_digesting(spec, cfg, mesh=None):
+        step = make(spec, cfg, mesh)
 
         def step_fn(state, batch):
             digests.append(batch_digest(batch))
@@ -3686,13 +3727,745 @@ def phase_export(card, golden_bound):
     return out
 
 
+# -- phase 10 ----------------------------------------------------------------
+
+MESH_CONFIG = "mpii_rank5_450_mesh"
+MESH_TRAIN_STEPS = 3
+MESH_TIMED_STEPS = 5
+MESH_EVAL_BATCHES = 8        # injected eval batches of 8 images x 3 crops
+GLOO_SIZE = 96
+GLOO_TIMED_STEPS = 5
+GLOO_DP_RTOL = 1e-4          # DP vs one process: loss relative, params abs
+GLOO_ZERO1_ATOL = 1e-5       # ZeRO-1 vs DP (tests/test_zero1.py)
+GLOO_TP_ATOL = 1e-4          # TP vs one process
+GLOO_MAP_ATOL = 1e-12        # the gathered eval's mAP vs one process's
+GLOO_CONFIG = dict(backbone="resnet_v1_50", image_size=GLOO_SIZE,
+                   resize_min=110, resize_max=130, rank=2, batch_size=8,
+                   bf16_backbone=False, freeze_bn=False, learning_rate=1e-3,
+                   grad_clip_norm=10.0, lr_schedule="constant",
+                   eval_batch_size=2)
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_mesh_workers(kind, world, workdir, timeout, one_card_each=False):
+    """``world`` processes of this script in ``--mesh-worker kind`` mode,
+    joined through torchrun's environment (all on card 0, or with
+    ``one_card_each`` rank r on card r); each writes
+    ``result_<kind>_<rank>.json``.  Raises with the worker's output when
+    one fails or outlives ``timeout``; every process is stopped."""
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(rank if one_card_each else 0),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-worker",
+             kind, "--workdir", workdir], cwd=HERE, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{kind} worker {rank} exited "
+                                 f"{p.returncode}:\n{out[-6000:]}")
+        for line in out.splitlines():
+            if line.startswith(MESH_LOG_PREFIX):
+                log(f"[{kind} rank {rank}] {line[len(MESH_LOG_PREFIX):]}")
+    results = []
+    for rank in range(world):
+        path = os.path.join(workdir, f"result_{kind}_{rank}.json")
+        with open(path) as f:
+            results.append(json.load(f))
+    return results, outs
+
+
+MESH_LOG_PREFIX = "mesh| "
+
+
+def mesh_log(*args):
+    """A worker's line, which :func:`run_mesh_workers` prints again."""
+    log(MESH_LOG_PREFIX + " ".join(str(a) for a in args))
+
+
+def _flat_params(state):
+    return torch.cat([t.detach().float().reshape(-1)
+                      for t in state.full_state_dict().values()
+                      if t.is_floating_point()])
+
+
+def _mesh_step(cfg, spec, variables, batch, mesh, dev, rows=None):
+    """One train step of ``cfg`` from ``variables`` on ``batch`` (this
+    rank's ``rows`` of it on a mesh), counted; the state, its parameters
+    and statistics as one flat vector, and the metrics."""
+    state, _ = train.create_state(cfg, device=dev, variables=variables,
+                                  mesh=mesh)
+    step = train.make_train_step(spec, cfg, mesh)
+    part = batch if rows is None else {k: v[rows] for k, v in batch.items()}
+    (state, metrics), launches = counted(
+        lambda: step(state, train.batch_to_device(part, dev)))
+    return state, _flat_params(state), {
+        k: float(v) for k, v in metrics.items()}, launches
+
+
+def _timed_steps(state, step, batch, dev, n):
+    """Median ms of ``n`` steps after one warm-up."""
+    dev_batch = train.batch_to_device(batch, dev)
+    step(state, dev_batch)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step(state, dev_batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def mesh5_worker(workdir):
+    """Config #5 in one rank over NCCL: the mesh step against the step
+    with no process group (and the gap of two such steps), its time and
+    memory; then ``train_cli --multiprocess`` from records and ``eval_cli
+    --multiprocess`` with 3 crops, and the eval loop on injected crops,
+    each counted."""
+    from attentionalpoolingaction_torch.parallel import mesh as mesh_lib
+    from attentionalpoolingaction_torch.parallel import multihost
+
+    with open(os.path.join(workdir, "mesh5.json")) as f:
+        params = json.load(f)
+    dev = multihost.setup()
+    out = {"backend": torch.distributed.get_backend(),
+           "world": torch.distributed.get_world_size(), "device": str(dev)}
+    cfg = config_lib.get_config(MESH_CONFIG)
+    spec = train.get_dataset(cfg.dataset)
+    variables = precision.seeded_variables(cfg, 0)
+    batch = precision.synthetic_batch(np.random.default_rng(50), cfg, spec)
+    accum = 1
+    try:
+        _, ref, ref_m, _ = _mesh_step(cfg, spec, variables, batch, None, dev)
+    except torch.cuda.OutOfMemoryError as e:
+        mesh_log(f"{MESH_CONFIG} at batch 64: out of memory ({e}); with "
+                 "freeze_bn two microbatches make the same update: "
+                 "grad_accum_steps=2")
+        torch.cuda.empty_cache()
+        accum = 2
+        cfg = dataclasses.replace(cfg, grad_accum_steps=2)
+        _, ref, ref_m, _ = _mesh_step(cfg, spec, variables, batch, None, dev)
+    out["grad_accum_steps"] = accum
+    _, again, again_m, _ = _mesh_step(cfg, spec, variables, batch, None, dev)
+    gap = float((again - ref).abs().max())
+    loss_gap = abs(again_m["loss/total"] - ref_m["loss/total"])
+    mesh = mesh_lib.make_mesh((1,), ("data",))
+    state, got, got_m, launches = _mesh_step(cfg, spec, variables, batch,
+                                             mesh, dev)
+    err = float((got - ref).abs().max())
+    loss_err = abs(got_m["loss/total"] - ref_m["loss/total"])
+    del ref, again, got
+    if err > gap or loss_err > loss_gap:
+        raise AssertionError(
+            f"{MESH_CONFIG}: the NCCL mesh step is {err:.3e} (loss "
+            f"{loss_err:.3e}) from the step with no process group, beyond "
+            f"the gap of two such steps {gap:.3e} (loss {loss_gap:.3e})")
+    expect_launches(f"{MESH_CONFIG} mesh step", launches, accum,
+                    backward=accum)
+    out.update(step_err=err, step_gap=gap, loss_err=loss_err,
+               loss_gap=loss_gap, step_launches=launches,
+               metrics=got_m)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step = train.make_train_step(spec, cfg, mesh)
+    out["step_ms"] = _timed_steps(state, step, batch, dev, MESH_TIMED_STEPS)
+    out["images_per_s"] = cfg.batch_size / out["step_ms"] * 1e3
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    del state, step
+    torch.cuda.empty_cache()
+    mesh_log(f"{MESH_CONFIG} one rank over NCCL ({params['card']}): the "
+             f"mesh step {err:.3e} from the step with no group (gap of two "
+             f"such steps {gap:.3e}; loss {loss_err:.3e} vs "
+             f"{loss_gap:.3e}); {out['step_ms']:.1f} ms a step (median of "
+             f"{MESH_TIMED_STEPS}), {out['images_per_s']:.1f} images/s, max "
+             f"allocated {out['max_memory_allocated'] / 2**30:.2f} GiB; "
+             f"launches {launches}")
+
+    sets = ["--set", "log_every=1", "--set", f"grad_accum_steps={accum}"]
+    t0 = time.perf_counter()
+    state, launches = counted(lambda: train_cli.main([
+        "--multiprocess", "--config", MESH_CONFIG,
+        "--train_pattern", params["train"], "--workdir", params["run"],
+        "--init_checkpoint", params["init"],
+        "--num_steps", str(MESH_TRAIN_STEPS), *sets]))
+    out["train_cli_s"] = time.perf_counter() - t0
+    n = MESH_TRAIN_STEPS * accum
+    expect_launches(f"{MESH_CONFIG} train_cli --multiprocess", launches, n,
+                    backward=n)
+    if state.step != MESH_TRAIN_STEPS or not all(
+            torch.isfinite(p).all() for p in state.model.parameters()):
+        raise AssertionError(f"{MESH_CONFIG} train_cli: step {state.step}")
+    out["train_launches"] = launches
+    del state
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    printed, launches = counted(lambda: eval_cli.main([
+        "--multiprocess", "--config", MESH_CONFIG,
+        "--eval_pattern", params["val"], "--workdir", params["run"],
+        "--notb"]))
+    out["eval_cli_s"] = time.perf_counter() - t0
+    res = printed[0]
+    n_eval = params["n_eval"]
+    batches = -(-n_eval // cfg.eval_batch_size)
+    expect_launches(f"{MESH_CONFIG} eval_cli --multiprocess, 3 crops",
+                    launches, batches, ycc=None)
+    if res["num_examples"] != n_eval or res["step"] != MESH_TRAIN_STEPS \
+            or not np.isfinite(res["mAP"]):
+        raise AssertionError(f"{MESH_CONFIG} eval_cli: {res}")
+    out["eval"] = res
+    out["eval_launches"] = launches
+
+    # the eval loop on injected 3-crop batches of the seeded weights
+    rng = np.random.default_rng(51)
+    size, b = cfg.image_size, cfg.eval_batch_size
+    injected = [{"image": rng.integers(0, 256, (b, cfg.eval_multicrop, size,
+                                                size, 3), np.uint8),
+                 "label": rng.integers(0, spec.num_classes, b).astype(
+                     np.int32),
+                 "mask": np.ones(b, np.float32)}
+                for _ in range(MESH_EVAL_BATCHES)]
+    weights = (variables[0], variables[1])
+    restored = checkpoint.EvalState(step=0, params=weights[0],
+                                    batch_stats=weights[1])
+    evaluator = evaluate.Evaluator(cfg, device=dev)
+    evaluator.logits(restored, iter(injected))      # loads the weights
+    t0 = time.perf_counter()
+    host, launches = counted(lambda: evaluate.eval_logits(
+        evaluator.step_fn, iter(injected), device=dev))
+    wall = time.perf_counter() - t0
+    expect_launches(f"{MESH_CONFIG} eval loop, 3 crops", launches,
+                    MESH_EVAL_BATCHES)
+    if not np.isfinite(host["logits"]).all():
+        raise AssertionError(f"{MESH_CONFIG} eval logits not finite")
+    out["eval_images_per_s"] = MESH_EVAL_BATCHES * b / wall
+    out["eval_loop_launches"] = launches
+    mesh_log(f"{MESH_CONFIG}: train_cli --multiprocess {MESH_TRAIN_STEPS} "
+             f"steps in {out['train_cli_s']:.1f} s, eval_cli --multiprocess "
+             f"(3 crops, {n_eval} records) {res} in "
+             f"{out['eval_cli_s']:.1f} s; eval loop on injected crops "
+             f"{out['eval_images_per_s']:.1f} images/s "
+             f"({3 * out['eval_images_per_s']:.1f} crops/s)")
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def _probe_gloo_cuda(dev):
+    """Which collectives gloo takes for CUDA tensors, by trying each."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    t = torch.ones(4, device=dev)
+    ops = {
+        "all_reduce": lambda: dist.all_reduce(t.clone()),
+        "all_reduce_async": lambda: dist.all_reduce(
+            t.clone(), async_op=True).wait(),
+        "broadcast": lambda: dist.broadcast(t.clone(), src=0),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(t) for _ in range(world)], t),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(4 * world, device=dev), t),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(4 // world, device=dev), t),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty_like(t), t),
+    }
+    out = {}
+    for name, fn in ops.items():
+        try:
+            fn()
+            torch.cuda.synchronize(dev)
+            out[name] = "ok"
+        except Exception as e:   # the answer is the probe's result
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+        dist.barrier()
+    return out
+
+
+def gloo2_worker(workdir):
+    """Two ranks on one card over gloo (NCCL refuses two ranks on one
+    device), resnet_v1_50 at 96 px: DP vs one process, ZeRO-1 vs DP, TP
+    of the HICO head vs one process, the one-step-late stop, the gathered
+    eval of uneven shards, launches on every rank, and the DP step's time
+    (gloo through the host, not NCCL)."""
+    from attentionalpoolingaction_torch.parallel import mesh as mesh_lib
+    from attentionalpoolingaction_torch.parallel import multihost
+
+    with open(os.path.join(workdir, "gloo2.json")) as f:
+        params = json.load(f)
+    dev = multihost.setup(backend="gloo")
+    rank, world = multihost.process_index(), multihost.process_count()
+    out = {"rank": rank, "device": str(dev),
+           "gloo_cuda": _probe_gloo_cuda(dev)}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    half = slice(rank * 4, rank * 4 + 4)
+    for dataset in ("mpii", "hico"):
+        cfg = config_lib.TrainConfig(dataset=dataset, **GLOO_CONFIG)
+        spec = train.get_dataset(dataset)
+        variables = precision.seeded_variables(cfg, 3)
+        batch = precision.synthetic_batch(np.random.default_rng(52), cfg,
+                                          spec)
+        _, one, one_m, _ = _mesh_step(cfg, spec, variables, batch, None, dev)
+        if dataset == "mpii":
+            dp_mesh = mesh_lib.make_mesh((2,), ("data",))
+            _, dp, dp_m, dp_l = _mesh_step(cfg, spec, variables, batch,
+                                           dp_mesh, dev, half)
+            z_cfg = dataclasses.replace(cfg, zero1=True)
+            _, z1, z1_m, z1_l = _mesh_step(z_cfg, spec, variables, batch,
+                                           dp_mesh, dev, half)
+            out["dp"] = {"params": float((dp - one).abs().max()),
+                         "loss": abs(dp_m["loss/total"]
+                                     - one_m["loss/total"])
+                         / abs(one_m["loss/total"]), "launches": dp_l}
+            out["zero1"] = {"params": float((z1 - dp).abs().max()),
+                            "launches": z1_l}
+            expect_launches(f"rank {rank} DP step", dp_l, 1, backward=1)
+            expect_launches(f"rank {rank} ZeRO-1 step", z1_l, 1, backward=1)
+            if out["dp"]["params"] > GLOO_DP_RTOL or \
+                    out["dp"]["loss"] > GLOO_DP_RTOL:
+                raise AssertionError(f"rank {rank}: DP vs one process "
+                                     f"{out['dp']}")
+            if out["zero1"]["params"] > GLOO_ZERO1_ATOL:
+                raise AssertionError(f"rank {rank}: ZeRO-1 vs DP "
+                                     f"{out['zero1']}")
+            state, _ = train.create_state(cfg, device=dev,
+                                          variables=variables, mesh=dp_mesh)
+            out["dp_step_ms"] = _timed_steps(
+                state, train.make_train_step(spec, cfg, dp_mesh),
+                {k: v[half] for k, v in batch.items()}, dev,
+                GLOO_TIMED_STEPS)
+            del state
+        else:
+            tp_cfg = dataclasses.replace(cfg, mesh_shape=(1, 2),
+                                         mesh_axes=("data", "model"))
+            tp_mesh = mesh_lib.make_mesh((1, 2), ("data", "model"))
+            state, tp, tp_m, tp_l = _mesh_step(tp_cfg, spec, variables,
+                                               batch, tp_mesh, dev)
+            shard = tuple(state.model.head.attn_w.shape)
+            del state
+            out["tp"] = {"params": float((tp - one).abs().max()),
+                         "loss": abs(tp_m["loss/total"]
+                                     - one_m["loss/total"])
+                         / abs(one_m["loss/total"]),
+                         "attn_w_shard": shard, "launches": tp_l}
+            expect_launches(f"rank {rank} TP step", tp_l, 1, backward=1)
+            if shard != (2048, 300, 2) or out["tp"]["params"] > \
+                    GLOO_TP_ATOL or out["tp"]["loss"] > GLOO_DP_RTOL:
+                raise AssertionError(f"rank {rank}: TP vs one process "
+                                     f"{out['tp']}")
+    # the stop: rank 1 raises its flag after step 1; both stop at step 2
+    cfg = config_lib.TrainConfig(dataset="mpii", mesh_shape=(2,),
+                                 **GLOO_CONFIG)
+    stop = threading.Event()
+
+    def raise_flag(step, state, metrics):
+        if rank == 1 and step == 1:
+            stop.set()
+
+    mpii = precision.synthetic_batch(np.random.default_rng(53), cfg,
+                                     train.get_dataset("mpii"))
+    state, _ = train.train(
+        cfg, train_iter=itertools.repeat(
+            {k: v[half] for k, v in mpii.items()}),
+        num_steps=4, device=dev, hooks=[raise_flag], stop_event=stop)
+    out["stopped_at"] = state.step
+    del state
+    # the gathered eval of 5 records (3 and 2 rows)
+    ecfg = config_lib.TrainConfig(dataset="mpii", eval_pattern=params["val"],
+                                  seed=4, **GLOO_CONFIG)
+    estate, _ = train.create_state(ecfg, device=dev)
+    res, launches = counted(lambda: evaluate.evaluate(ecfg, estate,
+                                                      device=dev))
+    out["eval"] = {"mAP": res["mAP"], "num_examples": res["num_examples"],
+                   "launches": launches}
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def mesh_serving(cfg, run_dir, datas, card):
+    """``serve_cli --data_parallel`` over the run's checkpoint: one card is
+    single-device dispatch (JAX's rule), ``/healthz`` says so; a few
+    ``/predict`` calls, counted."""
+    args = serve_cli.parse_args(["--config", MESH_CONFIG, "--workdir",
+                                 run_dir, "--data_parallel"])
+    pred = serve_cli.load_served(args)
+    n_cards = torch.cuda.device_count()
+    if (len(pred.replicas) > 1) != (n_cards > 1):
+        raise AssertionError(f"--data_parallel on {n_cards} card(s): "
+                             f"replicas {pred.replicas}")
+    pred.warmup()
+    out = {"replicas": len(pred.replicas), "buckets": list(pred.buckets)}
+    with HttpServer(pred) as srv:
+        conn = http_conn(srv.port)
+        status, _, body = http_call(conn, "GET", "/healthz")
+        health = json.loads(body)
+        if status != 200 or health["data_parallel"] != bool(pred.replicas):
+            raise AssertionError(f"/healthz: {status} {health}")
+
+        def predict():
+            answers = []
+            for data in datas[:4]:
+                status, _, body = http_call(conn, "POST", "/predict", data)
+                answers.append((status, json.loads(body)))
+            return answers
+
+        t0 = time.perf_counter()
+        answers, launches = counted(predict)
+        wall = time.perf_counter() - t0
+    if any(s != 200 or len(a["topk"]) != 5 for s, a in answers):
+        raise AssertionError(f"serve_cli --data_parallel: {answers}")
+    expect_launches(f"{MESH_CONFIG} /predict x4", launches, 4, ycc=None)
+    out.update(health=health, launches=launches,
+               predict_ms=wall / len(answers) * 1e3)
+    log(f"{MESH_CONFIG} serve_cli --data_parallel on {n_cards} card(s) "
+        f"({card}): {len(pred.replicas)} replicas, /healthz data_parallel "
+        f"{health['data_parallel']}, 4 /predict calls at "
+        f"{out['predict_ms']:.1f} ms each (one client); launches {launches}")
+    return out
+
+
+def phase_mesh(card):
+    """Config #5 through the mesh entry points on one card, and the mesh
+    paths over two gloo ranks; see the module docstring, phase 10."""
+    t_phase = time.monotonic()
+    names, datas, _, _ = load_fixtures()
+    torch.cuda.empty_cache()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d:
+        cfg = config_lib.get_config(MESH_CONFIG)
+        n_eval = 16
+        paths = config_records(d, MESH_CONFIG, datas, 2 * cfg.batch_size,
+                               n_eval, cfg.image_size)
+        run_dir = os.path.join(d, "run5")
+        params = {"train": paths["train"], "val": paths["val"],
+                  "run": run_dir, "n_eval": n_eval, "card": card,
+                  "init": seeded_init(MESH_CONFIG, d, 0)}
+        torch.cuda.empty_cache()
+        with open(os.path.join(d, "mesh5.json"), "w") as f:
+            json.dump(params, f)
+        (res5,), _ = run_mesh_workers("mesh5", 1, d, timeout=420)
+        if res5["backend"] != "nccl" or res5["world"] != 1:
+            raise AssertionError(f"mesh5 worker: {res5}")
+        out["config5"] = {"card": card, **res5}
+        out["config5"]["serve"] = mesh_serving(cfg, run_dir, datas, card)
+
+        spec = train.get_dataset("mpii")
+        val = os.path.join(d, "gloo_val.tfrecord")
+        records.write_synthetic_dataset(
+            val, spec, 5, image_size=GLOO_SIZE, seed=12,
+            encode_jpeg=fixture_encoder(datas))
+        native_io.build_index(val)
+        with open(os.path.join(d, "gloo2.json"), "w") as f:
+            json.dump({"val": val}, f)
+        ranks, _ = run_mesh_workers("gloo2", 2, d, timeout=300)
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            ecfg = config_lib.TrainConfig(dataset="mpii", eval_pattern=val,
+                                          seed=4, **GLOO_CONFIG)
+            estate, _ = train.create_state(ecfg, device="cuda")
+            alone = evaluate.evaluate(ecfg, estate, device="cuda")
+        finally:
+            torch.backends.cudnn.allow_tf32 = True
+    for r in ranks:
+        if r["stopped_at"] != 2:
+            raise AssertionError(f"rank {r['rank']} stopped at step "
+                                 f"{r['stopped_at']}, not 2")
+        if r["eval"]["num_examples"] != 5 or abs(
+                r["eval"]["mAP"] - alone["mAP"]) > GLOO_MAP_ATOL:
+            raise AssertionError(f"rank {r['rank']}: gathered eval "
+                                 f"{r['eval']} vs one process {alone}")
+        expect_launches(f"rank {r['rank']} gathered eval",
+                        r["eval"]["launches"], 2 - r["rank"])
+    out["gloo2"] = {"card": card, "times": "gloo through the host, not NCCL",
+                    "ranks": ranks, "one_process_mAP": alone["mAP"]}
+    out["phase_s"] = time.monotonic() - t_phase
+    for r in ranks:
+        log(f"gloo rank {r['rank']} of 2 on one card: collectives on CUDA "
+            f"tensors {r['gloo_cuda']}; DP vs one process "
+            f"{r['dp']['params']:.3e} "
+            f"(loss {r['dp']['loss']:.3e}), ZeRO-1 vs DP "
+            f"{r['zero1']['params']:.3e}, TP (1, 2) vs one process "
+            f"{r['tp']['params']:.3e}, stop at step {r['stopped_at']}, "
+            f"gathered mAP {r['eval']['mAP']!r} (one process "
+            f"{alone['mAP']!r}); DP step {r['dp_step_ms']:.1f} ms (gloo "
+            "through the host, not NCCL)")
+    log(f"phase 10 took {out['phase_s']:.1f} s (workdir removed)")
+    return out
+
+
+def cards_worker(workdir):
+    """One rank a card over NCCL, world = the cards: DP vs one process,
+    ZeRO-1 vs DP and the ``(n/2, 2)`` data x model step of ``hico``
+    against one process (resnet_v1_50 at 96 px, TF32 off), the stop
+    across ranks, the gathered eval, and config #5's step over the
+    ``(n,)`` mesh against one card's, timed in this call."""
+    from attentionalpoolingaction_torch.parallel import mesh as mesh_lib
+    from attentionalpoolingaction_torch.parallel import multihost
+
+    with open(os.path.join(workdir, "cards.json")) as f:
+        params = json.load(f)
+    dev = multihost.setup()
+    rank, world = multihost.process_index(), multihost.process_count()
+    out = {"rank": rank, "device": str(dev),
+           "backend": torch.distributed.get_backend()}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b = 4 * world
+    rows = slice(rank * 4, rank * 4 + 4)
+    for dataset in ("mpii", "hico"):
+        cfg = config_lib.TrainConfig(dataset=dataset, **{
+            **GLOO_CONFIG, "batch_size": b})
+        spec = train.get_dataset(dataset)
+        variables = precision.seeded_variables(cfg, 3)
+        batch = precision.synthetic_batch(np.random.default_rng(52), cfg,
+                                          spec)
+        _, one, one_m, _ = _mesh_step(cfg, spec, variables, batch, None, dev)
+        if dataset == "mpii":
+            mesh = mesh_lib.make_mesh((world,), ("data",))
+            _, dp, dp_m, dp_l = _mesh_step(cfg, spec, variables, batch,
+                                           mesh, dev, rows)
+            _, z1, _, z1_l = _mesh_step(dataclasses.replace(cfg, zero1=True),
+                                        spec, variables, batch, mesh, dev,
+                                        rows)
+            out["dp"] = {"params": float((dp - one).abs().max()),
+                         "loss": abs(dp_m["loss/total"]
+                                     - one_m["loss/total"])
+                         / abs(one_m["loss/total"]), "launches": dp_l}
+            out["zero1"] = {"params": float((z1 - dp).abs().max()),
+                            "launches": z1_l}
+            if out["dp"]["params"] > GLOO_DP_RTOL or \
+                    out["dp"]["loss"] > GLOO_DP_RTOL or \
+                    out["zero1"]["params"] > GLOO_ZERO1_ATOL:
+                raise AssertionError(f"rank {rank}: {out}")
+        else:
+            shape = (world // 2, 2)
+            tp_cfg = dataclasses.replace(cfg, mesh_shape=shape,
+                                         mesh_axes=("data", "model"))
+            mesh = mesh_lib.make_mesh(shape, ("data", "model"))
+            d = mesh_lib.axis_index(mesh, "data")
+            tp_rows = slice(d * 2 * b // world, (d + 1) * 2 * b // world)
+            _, tp, tp_m, tp_l = _mesh_step(tp_cfg, spec, variables, batch,
+                                           mesh, dev, tp_rows)
+            out["tp"] = {"params": float((tp - one).abs().max()),
+                         "loss": abs(tp_m["loss/total"]
+                                     - one_m["loss/total"])
+                         / abs(one_m["loss/total"]), "launches": tp_l}
+            if out["tp"]["params"] > GLOO_TP_ATOL or \
+                    out["tp"]["loss"] > GLOO_DP_RTOL:
+                raise AssertionError(f"rank {rank}: TP {out['tp']}")
+        for k in ("dp", "zero1") if dataset == "mpii" else ("tp",):
+            expect_launches(f"rank {rank} {k} step", out[k]["launches"], 1,
+                            backward=1)
+    cfg = config_lib.TrainConfig(dataset="mpii", mesh_shape=(world,),
+                                 **{**GLOO_CONFIG, "batch_size": b})
+    stop = threading.Event()
+
+    def raise_flag(step, state, metrics):
+        if rank == world - 1 and step == 1:
+            stop.set()
+
+    mpii = precision.synthetic_batch(np.random.default_rng(53), cfg,
+                                     train.get_dataset("mpii"))
+    state, _ = train.train(
+        cfg, train_iter=itertools.repeat(
+            {k: v[rows] for k, v in mpii.items()}),
+        num_steps=4, device=dev, hooks=[raise_flag], stop_event=stop)
+    out["stopped_at"] = state.step
+    del state
+    ecfg = config_lib.TrainConfig(dataset="mpii", eval_pattern=params["val"],
+                                  seed=4, **GLOO_CONFIG)
+    estate, _ = train.create_state(ecfg, device=dev)
+    res = evaluate.evaluate(ecfg, estate, device=dev)
+    out["eval"] = {"mAP": res["mAP"], "num_examples": res["num_examples"]}
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+
+    # config #5 over the (n,) mesh, 64 / n rows a card, against one card
+    # with the whole batch (rank 0, the others waiting), in this call
+    cfg = config_lib.get_config(MESH_CONFIG)
+    spec = train.get_dataset(cfg.dataset)
+    variables = precision.seeded_variables(cfg, 0)
+    batch = precision.synthetic_batch(np.random.default_rng(50), cfg, spec)
+    share = cfg.batch_size // world
+    mesh = mesh_lib.make_mesh((world,), ("data",))
+    state, _ = train.create_state(cfg, device=dev, variables=variables,
+                                  mesh=mesh)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out["mesh_step_ms"] = _timed_steps(
+        state, train.make_train_step(spec, cfg, mesh),
+        {k: v[rank * share:(rank + 1) * share] for k, v in batch.items()},
+        dev, MESH_TIMED_STEPS)
+    out["mesh_max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    del state
+    torch.cuda.empty_cache()
+    multihost.barrier()
+    if rank == 0:
+        state, _ = train.create_state(cfg, device=dev, variables=variables)
+        out["one_card_step_ms"] = _timed_steps(
+            state, train.make_train_step(spec, cfg), batch, dev,
+            MESH_TIMED_STEPS)
+        del state
+    multihost.barrier()
+    mesh_log(f"rank {rank} of {world} over NCCL ({params['card']}): DP vs "
+             f"one process {out['dp']['params']:.3e}, ZeRO-1 vs DP "
+             f"{out['zero1']['params']:.3e}, TP {shape} vs one process "
+             f"{out['tp']['params']:.3e}, stop at step {out['stopped_at']}, "
+             f"gathered mAP {out['eval']['mAP']!r}; {MESH_CONFIG} over "
+             f"({world},): {out['mesh_step_ms']:.1f} ms a step, "
+             f"{cfg.batch_size / out['mesh_step_ms'] * 1e3:.1f} images/s, "
+             f"max allocated "
+             f"{out['mesh_max_memory_allocated'] / 2**30:.2f} GiB"
+             + (f"; one card with the whole batch "
+                f"{out['one_card_step_ms']:.1f} ms" if rank == 0 else ""))
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def cards_serving(n, card):
+    """Data-parallel serving over ``n`` cards in this process, one replica
+    a card: ``mpii_rank1_224`` (float32, TF32 off) against one card's
+    probabilities, and config #5 at bucket 32 against one card, timed in
+    turns; counted."""
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = config_lib.get_config("mpii_rank1_224")
+        variables = precision.seeded_variables(cfg, 0)
+        one = serving.Predictor(cfg, *variables, buckets=(1, 8, 32))
+        many = serving.Predictor(cfg, *variables, buckets=(1, 8, 32),
+                                 data_parallel=True)
+        images = np.random.default_rng(60).integers(
+            0, 256, (40, cfg.image_size, cfg.image_size, 3), np.uint8)
+        want = one.predict_arrays(images)
+        got, launches = counted(lambda: many.predict_arrays(images))
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    err = float(np.abs(got - want).max())
+    # 40 images: a bucket of 32, then 8, each split over the replicas
+    expect_launches(f"data-parallel serving over {n} cards", launches,
+                    2 * n, ycc=0)
+    if len(many.replicas) != n or err > SERVE_PROB_ATOL:
+        raise AssertionError(f"data-parallel serving: {many.replicas}, "
+                             f"max |dprob| {err:.3e}")
+    cfg = config_lib.get_config(MESH_CONFIG)
+    variables = precision.seeded_variables(cfg, 0)
+    preds = [serving.Predictor(cfg, *variables, buckets=(32,),
+                               data_parallel=dp) for dp in (False, True)]
+    batch = np.random.default_rng(61).integers(
+        0, 256, (32, cfg.image_size, cfg.image_size, 3), np.uint8)
+    times = ([], [])
+    for p in preds:
+        p.predict_arrays(batch)
+    for _ in range(4):
+        for i in (0, 1, 1, 0):
+            t0 = time.perf_counter()
+            preds[i].predict_arrays(batch)
+            times[i].append(time.perf_counter() - t0)
+    out = {"replicas": n, "max_abs_dprob": err, "launches": launches,
+           "one_card_ms": float(np.median(times[0])) * 1e3,
+           "replicas_ms": float(np.median(times[1])) * 1e3}
+    log(f"data-parallel serving over {n} cards ({card}): {n} replicas, "
+        f"mpii_rank1_224 probabilities {err:.3e} from one card's (TF32 "
+        f"off); {MESH_CONFIG} at bucket 32: {out['replicas_ms']:.1f} ms a "
+        f"call over {n} replicas vs {out['one_card_ms']:.1f} ms on one "
+        f"card (median of 8 in turns); launches {launches}")
+    return out
+
+
+def phase_cards(card, n):
+    """``--cards N``: the mesh across N cards over NCCL, and
+    data-parallel serving over them; see the module docstring."""
+    if torch.cuda.device_count() < n:
+        raise AssertionError(f"--cards {n}: {torch.cuda.device_count()} "
+                             "card(s) visible")
+    t_phase = time.monotonic()
+    _, datas, _, _ = load_fixtures()
+    out = {"card": card, "cards": n}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cards_") as d:
+        val = os.path.join(d, "val.tfrecord")
+        records.write_synthetic_dataset(
+            val, train.get_dataset("mpii"), 5, image_size=GLOO_SIZE,
+            seed=12, encode_jpeg=fixture_encoder(datas))
+        native_io.build_index(val)
+        with open(os.path.join(d, "cards.json"), "w") as f:
+            json.dump({"val": val, "card": card}, f)
+        ranks, _ = run_mesh_workers("cards", n, d, timeout=600,
+                                    one_card_each=True)
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            ecfg = config_lib.TrainConfig(dataset="mpii", eval_pattern=val,
+                                          seed=4, **GLOO_CONFIG)
+            estate, _ = train.create_state(ecfg, device="cuda")
+            alone = evaluate.evaluate(ecfg, estate, device="cuda")
+        finally:
+            torch.backends.cudnn.allow_tf32 = True
+    for r in ranks:
+        if r["backend"] != "nccl" or r["stopped_at"] != 2 or \
+                r["eval"]["num_examples"] != 5 or \
+                abs(r["eval"]["mAP"] - alone["mAP"]) > GLOO_MAP_ATOL:
+            raise AssertionError(f"rank {r['rank']}: {r} vs one process "
+                                 f"{alone}")
+    out["ranks"] = ranks
+    out["serving"] = cards_serving(n, card)
+    out["phase_s"] = time.monotonic() - t_phase
+    log(f"--cards {n} took {out['phase_s']:.1f} s (workdir removed)")
+    log(json.dumps({"cards_run": out}, default=str))
+    return out
+
+MESH_WORKERS = {"mesh5": mesh5_worker, "gloo2": gloo2_worker,
+                "cards": cards_worker}
+
+
+def mesh_worker_main(kind, workdir):
+    """A worker of :func:`run_mesh_workers`: its result as JSON."""
+    out = MESH_WORKERS[kind](workdir)
+    path = os.path.join(workdir, f"result_{kind}_{os.environ['RANK']}.json")
+    with open(path, "w") as f:
+        json.dump(out, f, default=str)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="add a profiler breakdown of a call at "
                         "each bucket, of one train step and of the eval "
                         "loop")
+    parser.add_argument("--mesh-worker", choices=sorted(MESH_WORKERS),
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--workdir", help=argparse.SUPPRESS)
+    parser.add_argument("--cards", type=int, default=0,
+                        help="instead of the phases, the mesh across this "
+                        "many cards over NCCL and data-parallel serving "
+                        "over them (needs that many cards)")
     args = parser.parse_args()
+    if args.mesh_worker:
+        mesh_worker_main(args.mesh_worker, args.workdir)
+        return
+    if args.cards:
+        card = phase_device()
+        build_libraries()
+        phase_cards(card, args.cards)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
 
     card = phase_device()
     build_libraries()
@@ -3715,6 +4488,8 @@ def main():
     served = phase_http_serving(card, rec_run["record_logits"]["bound"],
                                 profile=args.profile)
     exported = phase_export(card, rec_run["record_logits"]["bound"])
+    meshed = phase_mesh(card)
+    config5, gloo2 = meshed["config5"], meshed["gloo2"]["ranks"]
 
     def path_launches(name):
         """The launches of ``name`` on each main path, each counted over
@@ -3744,7 +4519,17 @@ def main():
                 "export_serve_launches":
                     exported["http"]["launches"][name],
                 "visualize_launches":
-                    exported["visualize"]["launches"][name]}
+                    exported["visualize"]["launches"][name],
+                "mesh5_step_launches": config5["step_launches"][name],
+                "mesh5_train_launches": config5["train_launches"][name],
+                "mesh5_eval_launches": config5["eval_launches"][name],
+                "mesh5_serve_launches": config5["serve"]["launches"][name],
+                "gloo2_dp_launches": [r["dp"]["launches"][name]
+                                      for r in gloo2],
+                "gloo2_zero1_launches": [r["zero1"]["launches"][name]
+                                         for r in gloo2],
+                "gloo2_tp_launches": [r["tp"]["launches"][name]
+                                      for r in gloo2]}
 
     kernels = []
     for name in ("saliency_summary", "project_logits", "pool_backward"):
@@ -3791,6 +4576,7 @@ def main():
     log(json.dumps({"serving_run": {
         k: v for k, v in served.items() if k != "http"}}, default=str))
     log(json.dumps({"export_run": exported}, default=str))
+    log(json.dumps({"mesh_run": meshed}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

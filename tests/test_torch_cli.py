@@ -23,6 +23,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -37,6 +38,7 @@ from attentionalpoolingaction_torch.data import png, records
 from attentionalpoolingaction_torch.data.datasets import get_dataset
 from attentionalpoolingaction_torch.tf_checkpoint import _fields
 from attentionalpoolingaction_torch.utils import profiling
+from torch_spawn import free_port
 
 torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -120,11 +122,21 @@ def test_train_cli_trains_resumes_and_writes_events(data):
     assert all(np.isfinite(v) for _, v in got["loss/total"] + got["grad_norm"])
     assert [s for s, _ in got["eval/mAP"]] == [2]
     assert got["eval/num_examples"] == [(2, 5.0)]
-    with pytest.raises(NotImplementedError, match="multiprocess"):
-        train_cli.main(args + ["--multiprocess"])
-    # attention overlays of the eval split's first 4 images at step 4
-    state = train_cli.main(args + ["--num_steps", "4",
-                                   "--attn_summary_every", "2"])
+    # --multiprocess joins a job of one process over gloo from torchrun's
+    # environment and trains as alone (the 2-process job is
+    # tests/test_torch_parallel.py); attention overlays of the eval
+    # split's first 4 images at step 4
+    with mock.patch.dict(os.environ, {
+            "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}):
+        try:
+            state = train_cli.main(args + ["--num_steps", "4",
+                                           "--attn_summary_every", "2",
+                                           "--multiprocess"])
+            assert torch.distributed.get_backend() == "gloo"
+            assert torch.distributed.get_world_size() == 1
+        finally:
+            torch.distributed.destroy_process_group()
     assert state.step == 4 and state.model.training
     got = images(f"{data}/run")
     for kind in ("top_down", "saliency"):

@@ -205,15 +205,21 @@ def test_evaluator_reloads_and_pipelining_keeps_bits():
 
 def test_unported_eval_paths_raise():
     cfg = config_lib.TrainConfig(**make_cfg("mpii"))
-    # int8 evaluation is ported (tests/test_torch_inference.py); a sharded
-    # int8 step is not
+    # int8 evaluation is ported (tests/test_torch_inference.py); the step
+    # of mesh_from_config's mesh is the process's own step (one card a
+    # process: the split is what shards, tests/test_torch_parallel.py)
     int8 = eval_lib.Evaluator(dataclasses.replace(cfg, eval_int8=True),
                               device="cpu")
     assert int8.model is None and int8.int8_step is not None
-    with pytest.raises(NotImplementedError, match="sharded"):
-        eval_lib.make_int8_eval_step(cfg, mesh=object(), device="cpu")
-    evaluator = eval_lib.Evaluator(cfg, device="cpu")
     params, stats = variables_for("mpii")
+    images = np.random.default_rng(0).integers(
+        0, 256, (2, SIZE, SIZE, 3), dtype=np.uint8)
+    steps = [eval_lib.make_int8_eval_step(cfg, mesh=mesh, device="cpu")
+             for mesh in (eval_lib.mesh_from_config(cfg), None)]
+    torch.testing.assert_close(
+        *[s(params, stats, torch.from_numpy(images)) for s in steps],
+        rtol=0, atol=0)
+    evaluator = eval_lib.Evaluator(cfg, device="cpu")
     # without an eval_iter the split is read from cfg.eval_pattern
     with pytest.raises(ValueError, match="eval_pattern"):
         evaluator(ckpt_lib.EvalState(step=0, params=params,

@@ -230,18 +230,37 @@ def test_int8_artifact_roundtrip(int8_float32_only):
 
 
 def test_data_parallel_predictor_refuses_export(variables, tmp_path):
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        serving.Predictor(_cfg(), *variables, buckets=(8,),
-                          data_parallel=True, device="cpu")
-    meshed = types.SimpleNamespace(mesh=object())
+    # one replica a device over two (CPU) devices: export refuses, as the
+    # JAX package's does; on one device data_parallel is single-device
+    two = serving.Predictor(_cfg(), *variables, buckets=(3,),
+                            data_parallel=True, devices=["cpu", "cpu"],
+                            device="cpu")
+    assert len(two.replicas) == 2 and two.buckets == (4,)
     with pytest.raises(ValueError, match="data_parallel"):
-        export_lib.export_predictor(meshed, str(tmp_path / "x"))
+        export_lib.export_predictor(two, str(tmp_path / "x"))
+    one = serving.Predictor(_cfg(), *variables, buckets=(3,),
+                            data_parallel=True, device="cpu")
+    assert one.replicas == () and one.buckets == (3,)
+    assert not (tmp_path / "x").exists()
 
 
 def test_exported_data_parallel_load(artifact):
-    _, out, _ = artifact
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        export_lib.load_exported(out, data_parallel=True, device="cpu")
+    """An artifact served with one replica a device (two CPU devices)
+    gives the one-device artifact's probabilities; its buckets round up
+    to multiples of two."""
+    _, out, manifest = artifact
+    two = export_lib.load_exported(out, data_parallel=True,
+                                   devices=["cpu", "cpu"], device="cpu")
+    assert len(two.replicas) == 2
+    assert two.buckets == tuple(sorted({-(-b // 2) * 2
+                                        for b in manifest["buckets"]}))
+    images = np.random.default_rng(5).integers(
+        0, 256, (3, 64, 64, 3), dtype=np.uint8)
+    np.testing.assert_allclose(two.predict_arrays(images),
+                               _load(out).predict_arrays(images),
+                               rtol=1e-5, atol=1e-7)
+    assert export_lib.load_exported(
+        out, data_parallel=True, device="cpu").replicas == ()
 
 
 def test_exported_http_serving(artifact):

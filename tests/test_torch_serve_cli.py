@@ -513,11 +513,16 @@ def test_predict_cli_prints_one_line_an_image(workdir, tmp_path, capsys):
                       "--device", "cpu", *sets])
     clip = json.loads(capsys.readouterr().out.strip())
     assert clip["frames"] == paths and clip["frames_received"] == 3
-    with pytest.raises(NotImplementedError):
-        predict_cli.main(["--workdir", workdir, "--images", *paths,
-                          "--data_parallel", *sets])
-    with pytest.raises(NotImplementedError):
-        serve_cli.main(["--workdir", workdir, "--data_parallel", *sets])
+    # --data_parallel on a host of one device: single-device dispatch,
+    # the same answers (JAX's rule)
+    predict_cli.main(["--workdir", workdir, "--images", *paths, "--topk",
+                      "2", "--batch_size", "1", "--data_parallel",
+                      "--device", "cpu", *sets])
+    assert [json.loads(x) for x in
+            capsys.readouterr().out.strip().splitlines()] == lines
+    served = serve_cli.load_served(serve_cli.parse_args(
+        ["--workdir", workdir, "--data_parallel", "--device", "cpu", *sets]))
+    assert served.replicas == () and served.buckets == (1, 8, 32)
     # the same checkpoint exported: predict_cli and serve_cli answer from
     # the artifact with the checkpoint's bits (float32 on the CPU)
     art = str(tmp_path / "artifact")

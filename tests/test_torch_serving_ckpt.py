@@ -78,14 +78,23 @@ def test_load_predictor_errors(run, tmp_path):
         serving.load_predictor(dataclasses.replace(cfg, workdir=str(tmp_path)),
                                device="cpu")
     # int8 serving is ported (tests/test_torch_serving_bytes.py); a
-    # missing calibration file raises, data-parallel serving is not ported
+    # missing calibration file raises.  data_parallel on a host of one
+    # device is single-device dispatch (JAX's rule), float and int8 alike;
+    # over two devices one replica each, the buckets rounded up to even
     with pytest.raises(FileNotFoundError):
         serving.load_predictor(cfg, device="cpu", int8=True,
                                calibration_files=("no-such.jpg",))
     for kw in (dict(data_parallel=True),
                dict(int8=True, data_parallel=True)):
-        with pytest.raises(NotImplementedError, match="data-parallel"):
-            serving.load_predictor(cfg, device="cpu", **kw)
+        pred = serving.load_predictor(cfg, device="cpu", buckets=(1, 4),
+                                      **kw)
+        assert pred.replicas == () and pred.buckets == (1, 4)
+        two = serving.load_predictor(cfg, device="cpu", buckets=(1, 4),
+                                     devices=["cpu", "cpu"], **kw)
+        assert len(two.replicas) == 2 and two.buckets == (2, 4)
+        np.testing.assert_allclose(two.predict_arrays(run["images"]),
+                                   pred.predict_arrays(run["images"]),
+                                   rtol=1e-5, atol=1e-7)
     no_ema = ckpt_lib.EvalState(step=0, params={}, batch_stats={})
     with pytest.raises(ValueError, match="no ema_params"):
         serving.deploy_params(no_ema, use_ema=True)

@@ -368,8 +368,36 @@ def test_train_loop_logs_and_calls_hooks():
 
 @pytest.mark.parametrize("kw, where", [
     (dict(mesh_shape=(2,)), "step"), (dict(zero1=True), "step"),
-    (dict(remat_units=True), "step")])
+    (dict(remat_units=True), "step"), (dict(mesh_shape=(8,)), "train")])
 def test_unported_options_raise(kw, where):
+    """``remat_units`` raises.  A mesh and ZeRO-1 are ported
+    (tests/test_torch_mesh.py); in one process (no process group) the
+    step and ``train`` run without a mesh where JAX's ``train`` builds
+    none on one device: BASELINE config #5's ``mesh_shape=(8,)`` trains
+    alone, as one device's step."""
     cfg = dataclasses.replace(small_cfg(), **kw)
-    with pytest.raises(NotImplementedError):
-        train.make_train_step(train.get_dataset("mpii"), cfg)
+    spec = train.get_dataset("mpii")
+    if cfg.remat_units:
+        with pytest.raises(NotImplementedError):
+            train.make_train_step(spec, cfg)
+        return
+    rng = np.random.default_rng(3)
+    batch = {"image": rng.integers(0, 256, (2, 64, 64, 3), np.uint8),
+             "label": rng.integers(0, 393, 2).astype(np.int32)}
+    if where == "step":
+        init = {"variables": convert.random_flax_variables(
+            "resnet_v1_50", num_classes=393, num_positions=4)}
+        state, _ = train.create_state(cfg, device="cpu", **init)
+        assert state.mesh is None and state.plan is None
+        train.make_train_step(spec, cfg)(state,
+                                         train.batch_to_device(batch, "cpu"))
+    else:
+        init = {}
+        state, _ = train.train(cfg, train_iter=iter([batch]), num_steps=1,
+                               device="cpu")
+    alone, _ = train.create_state(small_cfg(), device="cpu", **init)
+    train.make_train_step(spec, small_cfg())(
+        alone, train.batch_to_device(batch, "cpu"))
+    for (k, a), b in zip(alone.model.state_dict().items(),
+                         state.model.state_dict().values()):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=k)
