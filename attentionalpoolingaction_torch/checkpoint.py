@@ -18,12 +18,25 @@ when the run keeps one, ``ema_params`` (the parameter EMA by name).  A
 save writes ``<step>.tmp/`` and renames it into place, so a step
 directory is either whole or absent.  An Orbax step directory raises.
 
+Saves are asynchronous, as the JAX package's Orbax saves are
+(``enable_async_checkpointing``): ``CheckpointManager.save`` copies the
+payload into host buffers that the manager keeps from save to save
+(pinned memory, with copies queued on the current CUDA stream, so that
+the next step's in-place updates, queued after them, cannot overtake
+them), and one background thread writes, syncs, renames and prunes.
+Everything that reads or saves a directory waits first for the save in
+flight there from this process (``save``, ``all_steps``, ``load`` and
+so ``restore`` and ``restore_for_eval``, ``wait_until_finished``), and
+so does interpreter exit; an error of the background write is raised by
+the first of them.
+
 Slim checkpoints are read by the port's own reader of TF's V1 and V2
 formats (``tf_checkpoint.py``), in place of ``tf.train.load_checkpoint``.
 """
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 import logging
@@ -31,6 +44,7 @@ import os
 import pathlib
 import re
 import shutil
+import threading
 from typing import Any
 
 import numpy as np
@@ -58,22 +72,98 @@ def _fsync_dir(path: pathlib.Path) -> None:
         os.close(fd)
 
 
+class _Write:
+    """One background save: waits for its host copies, writes the step."""
+
+    def __init__(self, manager, step: int, payload: dict, events: list):
+        self.step = step
+        self.error: BaseException | None = None
+        self.thread = threading.Thread(
+            target=self._run, args=(manager, payload, events),
+            name=f"checkpoint-save-{step}")
+
+    def _run(self, manager, payload, events):
+        try:
+            for event in events:
+                event.synchronize()
+            manager._write(self.step, payload)
+        except BaseException as exc:     # raised again by _finish_write
+            self.error = exc
+
+
+# the save in flight from this process, by directory: every manager of a
+# directory (a reader made after a save included) waits for it
+_writes: dict[str, _Write] = {}
+_writes_lock = threading.Lock()
+
+
+def _finish_write(directory: pathlib.Path) -> None:
+    """Wait for the save in flight to ``directory``, if any, and raise its
+    error."""
+    with _writes_lock:
+        write = _writes.pop(str(directory.resolve()), None)
+    if write is None:
+        return
+    write.thread.join()
+    if write.error is not None:
+        raise write.error
+
+
+def _finish_all_writes() -> None:
+    """At interpreter exit (after the write threads, which are not
+    daemons, have ended): raise the error of a save nobody waited for."""
+    with _writes_lock:
+        dirs = list(_writes)
+    for d in dirs:
+        _finish_write(pathlib.Path(d))
+
+
+atexit.register(_finish_all_writes)
+
+
+def _map_tensors(tree, fn, path=()):
+    if isinstance(tree, torch.Tensor):
+        return fn(path, tree)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(v, fn, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(v, fn, path + (i,))
+                          for i, v in enumerate(tree))
+    return tree
+
+
 class CheckpointManager:
     """Numbered step directories under ``directory``, the ``max_to_keep``
-    newest kept (all when None).  Saves are synchronous and atomic."""
+    newest kept (all when None).  Saves are atomic and asynchronous: see
+    the module docstring."""
 
     def __init__(self, directory, max_to_keep: int | None = 3):
         self.directory = pathlib.Path(directory)
         self.max_to_keep = max_to_keep
         self.directory.mkdir(parents=True, exist_ok=True)
+        # host copies of the last payload saved, by path in the payload:
+        # allocated once (pinned for CUDA tensors) and reused
+        self._host: dict[tuple, torch.Tensor] = {}
 
-    def all_steps(self) -> list[int]:
-        """The committed steps, ascending; leftover ``<step>.tmp``
-        directories of an interrupted save are not steps."""
+    def _listed_steps(self) -> list[int]:
         if not self.directory.is_dir():
             return []
         return sorted(int(p.name) for p in self.directory.iterdir()
                       if p.name.isdigit() and p.is_dir())
+
+    def all_steps(self) -> list[int]:
+        """The committed steps, ascending, once the save in flight has
+        committed; leftover ``<step>.tmp`` directories of an interrupted
+        save are not steps."""
+        _finish_write(self.directory)
+        return self._listed_steps()
+
+    def retained_steps(self, step: int) -> list[int]:
+        """The steps the directory will hold once the save of ``step``
+        (in flight or done) commits and the window is pruned, without
+        waiting for it."""
+        steps = sorted(set(self._listed_steps()) | {int(step)})
+        return steps[-self.max_to_keep:] if self.max_to_keep else steps
 
     def latest_step(self) -> int | None:
         steps = self.all_steps()
@@ -83,13 +173,54 @@ class CheckpointManager:
         return self.directory / str(int(step))
 
     def save(self, step: int, payload: dict) -> None:
-        """Write ``payload`` as step ``step``: into ``<step>.tmp/``, synced,
-        then renamed into place; then prune to ``max_to_keep``.  A step
-        that is already saved raises, as Orbax's manager refuses it."""
-        final = self.step_dir(step)
-        if final.exists():
-            raise ValueError(f"step {int(step)} is already saved under "
+        """Save ``payload`` as step ``step`` in the background, after the
+        save in flight: its tensors are copied into the manager's host
+        buffers here (on the CPU, before this returns; from a card, queued
+        on the current stream), then a thread writes ``<step>.tmp/``,
+        syncs it, renames it into place and prunes to ``max_to_keep``.  A
+        step that is already saved raises, as Orbax's manager refuses
+        it."""
+        _finish_write(self.directory)
+        step = int(step)
+        if self.step_dir(step).exists():
+            raise ValueError(f"step {step} is already saved under "
                              f"{self.directory}")
+        host, events = self._stage(payload)
+        write = _Write(self, step, host, events)
+        with _writes_lock:
+            _writes[str(self.directory.resolve())] = write
+        write.thread.start()
+
+    def _stage(self, payload: dict) -> tuple[dict, list]:
+        """``payload`` with each tensor copied into its host buffer, and
+        an event on each card's current stream after its copies."""
+        used = {}
+        devices = set()
+
+        def copy(path, t):
+            buf = self._host.get(path)
+            if (buf is None or buf.shape != t.shape or buf.dtype != t.dtype
+                    or buf.stride() != t.stride()):
+                buf = torch.empty_like(t, device="cpu",
+                                       pin_memory=t.is_cuda)
+            buf.copy_(t.detach(), non_blocking=t.is_cuda)
+            if t.is_cuda:
+                devices.add(t.device)
+            used[path] = buf
+            return buf
+
+        host = _map_tensors(payload, copy)
+        self._host = used
+        events = []
+        for device in devices:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(device))
+            events.append(event)
+        return host, events
+
+    def _write(self, step: int, payload: dict) -> None:
+        """The background half of :meth:`save`."""
+        final = self.step_dir(step)
         tmp = self.directory / f"{int(step)}{_TMP_SUFFIX}"
         if tmp.exists():
             shutil.rmtree(tmp)
@@ -101,12 +232,14 @@ class CheckpointManager:
         os.replace(tmp, final)
         _fsync_dir(self.directory)
         if self.max_to_keep is not None:
-            for s in self.all_steps()[:-self.max_to_keep]:
+            for s in self._listed_steps()[:-self.max_to_keep]:
                 shutil.rmtree(self.step_dir(s), ignore_errors=True)
 
     def load(self, step: int, map_location, *, mmap: bool = False) -> dict:
         """The payload of step ``step``, its tensors on ``map_location``
-        (memory-mapped, and read only where touched, with ``mmap``)."""
+        (memory-mapped, and read only where touched, with ``mmap``), once
+        the save in flight has committed."""
+        _finish_write(self.directory)
         d = self.step_dir(step)
         f = d / CHECKPOINT_FILE
         if not f.is_file():
@@ -128,7 +261,11 @@ class CheckpointManager:
         ``serving.CheckpointFollower``, as Orbax's manager has it)."""
 
     def wait_until_finished(self) -> None:
-        """Saves are synchronous (the JAX API's drain of async saves)."""
+        """Wait for the save in flight and raise its error; then, in a job
+        of several processes, meet every process at a barrier, so that
+        each sees the step process 0 wrote.  Every process calls it."""
+        _finish_write(self.directory)
+        multihost.barrier()
 
 
 def make_manager(workdir, max_to_keep: int | None = 3) -> CheckpointManager:
@@ -136,15 +273,16 @@ def make_manager(workdir, max_to_keep: int | None = 3) -> CheckpointManager:
 
 
 def save(manager: CheckpointManager, state, step: int | None = None) -> None:
-    """Save a ``train.TrainState`` as step ``step`` (default its own).  In
-    a job of several processes every process calls it: the state is
-    gathered whole (the head's class shards, ZeRO-1's slices), process 0
-    writes it, and a barrier follows."""
+    """Save a ``train.TrainState`` as step ``step`` (default its own), in
+    the background (:meth:`CheckpointManager.save`).  In a job of several
+    processes every process calls it: the state is gathered whole (the
+    head's class shards, ZeRO-1's slices) and process 0 queues the write;
+    :meth:`CheckpointManager.wait_until_finished`, which every process
+    calls, waits for it and meets the others."""
     payload = state.payload()
     if multihost.process_index() == 0:
         manager.save(int(state.step) if step is None else int(step),
                      payload)
-    multihost.barrier()
 
 
 def restore(manager: CheckpointManager, state, step: int | None = None):
@@ -255,14 +393,16 @@ class BestKeeper:
 
     def update(self, step: int, results: dict, state) -> bool:
         """Save ``state`` iff ``results`` beats the stored best; returns
-        whether it saved.  The save commits first and the meta is written
-        after it, so a crash in between leaves at worst a checkpoint
-        without a meta, never a meta naming a missing checkpoint."""
+        whether it saved.  The save commits first (this waits for it, as
+        the JAX package does) and the meta is written after it, so a crash
+        in between leaves at worst a checkpoint without a meta, never a
+        meta naming an uncommitted checkpoint."""
         name, value = best_metric_of(results)
         prev = self.best()
         if prev is not None and value <= float(prev["value"]):
             return False
         save(self._mgr, state, step=int(step))
+        self._mgr.wait_until_finished()
         if multihost.process_index() != 0:
             return True
         tmp = self._meta.with_name(self._meta.name + _TMP_SUFFIX)

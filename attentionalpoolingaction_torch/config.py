@@ -208,13 +208,18 @@ def get_config(name: str, **overrides) -> TrainConfig:
 
 
 def parse_overrides(pairs):
-    """Parse CLI --set field=value overrides (values as python literals
-    when possible)."""
+    """Parse CLI --set field=value overrides: ``true`` and ``false``, in
+    any case, are booleans; other values are python literals when
+    possible, else strings.  (The JAX package keeps ``false`` a string,
+    which is truthy, so ``--set freeze_bn=false`` froze BN there.)"""
     import ast
 
     out = {}
     for pair in pairs:
         key, _, value = pair.partition("=")
+        if value.lower() in ("true", "false"):
+            out[key] = value.lower() == "true"
+            continue
         try:
             out[key] = ast.literal_eval(value)
         except (ValueError, SyntaxError):

@@ -45,7 +45,8 @@ import torch
 from attentionalpoolingaction_torch.ops import _build
 
 __all__ = ["LIBRARY", "YccBatchPlan", "decode", "decode_calls",
-           "decode_count", "decode_planes", "decoder_count", "image_size",
+           "decode_count", "decode_planes", "decoder_count", "frame_size",
+           "image_size",
            "launch_counts", "orient", "reset_counts", "ycc_batch_plan",
            "ycc_images", "ycc_to_rgb", "ycc_to_rgb_batch",
            "ycc_to_rgb_plain"]
@@ -165,6 +166,14 @@ def _header(data: bytes) -> tuple[int, int, int]:
         raise ValueError("JPEG stream has no frame header")
     # OpenCV leaves a stream with a tag outside 1-8 as it is
     return (*size, orientation if orientation in range(1, 9) else 1)
+
+
+def frame_size(data: bytes) -> tuple[int, int]:
+    """(height, width) of a JPEG stream's frame header, without decoding
+    and whatever its EXIF orientation: the shape
+    ``tf.io.extract_jpeg_shape`` gives, which the dataset converters
+    store."""
+    return _header(data)[:2]
 
 
 def image_size(data: bytes) -> tuple[int, int]:

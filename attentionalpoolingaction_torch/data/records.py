@@ -193,7 +193,9 @@ def make_example(image_jpeg: bytes, *, height: int, width: int,
                  visibility: np.ndarray | None = None,
                  video_id: int | None = None,
                  frame: int | None = None) -> bytes:
-    """A serialized ``tf.train.Example`` of the schema above."""
+    """A serialized ``tf.train.Example`` of the schema above, its
+    features in key order: the bytes ``SerializeToString(deterministic=
+    True)`` gives for TensorFlow's own example."""
     feat = {
         "image/encoded": _bytes_feature(image_jpeg),
         "image/height": _int64_feature([height]),
@@ -213,11 +215,13 @@ def make_example(image_jpeg: bytes, *, height: int, width: int,
     if video_id is not None:
         feat["video/id"] = _int64_feature([video_id])
         feat["video/frame"] = _int64_feature([frame or 0])
-    # Features.feature = 1: map<string, Feature>, one entry message each
+    # Features.feature = 1: map<string, Feature>, one entry message each,
+    # in key order (protobuf's deterministic serialization); TensorFlow's
+    # map order changes from process to process
     entries = b"".join(
         encode_field(1, 2, encode_field(1, 2, k.encode()) +
                      encode_field(2, 2, v))
-        for k, v in feat.items())
+        for k, v in sorted(feat.items()))
     return encode_field(1, 2, entries)          # Example.features = 1
 
 
@@ -314,11 +318,12 @@ def parse_example(raw: bytes, spec: DatasetSpec, *,
 
 # -- synthetic data ------------------------------------------------------------
 
-def _cv2_encode_jpeg(image: np.ndarray) -> bytes:
-    """JPEG bytes of an RGB uint8 image, by OpenCV (quality 95, 4:2:0)."""
+def _cv2_encode_jpeg(image: np.ndarray, quality: int = 95) -> bytes:
+    """JPEG bytes of an RGB uint8 image, by OpenCV (4:2:0)."""
     import cv2
 
-    ok, buf = cv2.imencode(".jpg", cv2.cvtColor(image, cv2.COLOR_RGB2BGR))
+    ok, buf = cv2.imencode(".jpg", cv2.cvtColor(image, cv2.COLOR_RGB2BGR),
+                           [cv2.IMWRITE_JPEG_QUALITY, int(quality)])
     if not ok:
         raise ValueError("cv2.imencode failed")
     return buf.tobytes()

@@ -14,7 +14,9 @@ offset.
 ``dtype`` is the backbone's compute dtype (bfloat16 with the config's
 ``bf16_backbone``); the parameters are float32 whatever it is, and the
 features are cast to float32 before every head, so the heads, the pose
-heatmaps and the logits are float32.
+heatmaps and the logits are float32.  ``remat_units`` rematerializes
+each bottleneck of the backbone in the backward (``models/resnet.py``);
+the heads are outside the rematerialized units.
 """
 
 from __future__ import annotations
@@ -43,14 +45,16 @@ class ActionModel(nn.Module):
                  num_joints: int = 16, bn_momentum: float = 0.997,
                  image_size: int = 224, freeze_bn: bool = False,
                  generator: torch.Generator | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 remat_units: bool = False):
         super().__init__()
         if pooling not in POOLING_TYPES:
             raise ValueError(f"unknown pooling {pooling!r}")
         self.pooling = pooling
         self.freeze_bn = freeze_bn
         self.resnet = BACKBONES[backbone](bn_momentum=bn_momentum,
-                                          generator=generator, dtype=dtype)
+                                          generator=generator, dtype=dtype,
+                                          remat_units=remat_units)
         if pooling == "avg":
             self.head = AveragePoolingHead(NUM_FEATURES, num_classes,
                                            generator=generator)

@@ -16,12 +16,13 @@ def get_model(backbone: str = "resnet_v1_101", *, num_classes: int,
               image_size: int = 224, freeze_bn: bool = False,
               generator: torch.Generator | None = None,
               dtype: torch.dtype = torch.float32,
-              device=None) -> ActionModel:
+              remat_units: bool = False, device=None) -> ActionModel:
     """An ActionModel in eval mode on ``device`` (default ``cuda``; raises
     when there is no card and the caller did not ask for the CPU), its
     weights drawn from ``generator`` as Flax draws them, its backbone
-    computing in ``dtype`` (parameters float32).  ``train()`` switches it
-    to the training forward."""
+    computing in ``dtype`` (parameters float32), each bottleneck
+    rematerialized in the backward with ``remat_units``.  ``train()``
+    switches it to the training forward."""
     if backbone not in BACKBONES:
         raise ValueError(
             f"unknown backbone {backbone!r}; available: {sorted(BACKBONES)}")
@@ -37,5 +38,6 @@ def get_model(backbone: str = "resnet_v1_101", *, num_classes: int,
             freeze_bn=freeze_bn,
             generator=generator,
             dtype=dtype,
+            remat_units=remat_units,
         )
     return model.eval()

@@ -20,6 +20,14 @@ Slim semantics reproduced here; each one breaks parity silently if lost:
   * Init as Flax's: convs ``lecun_normal`` (:func:`lecun_normal_`), BN
     scale 1, offset 0, running mean 0, variance 1.
   * v1 = post-activation: out = relu(shortcut + residual).
+  * ``remat_units`` (Flax's ``nn.remat`` of each bottleneck): each unit
+    runs under ``torch.utils.checkpoint``, which keeps only its input and
+    runs its forward again in the backward.  The recompute normalizes
+    with the same batch statistics (the same input gives them) but must
+    not move the running statistics a second time, as the JAX package's
+    functional recompute does not: :func:`_recomputing` marks the unit's
+    batch norms for the recompute alone.  With ``sync_group`` the
+    recompute all-reduces again, on every rank in the same order.
   * Compute ``dtype`` (Flax's ``dtype=bfloat16, param_dtype=float32``):
     parameters and BN statistics stay float32.  The input is rounded to
     ``dtype`` after the VGG mean subtraction; each conv casts its float32
@@ -41,11 +49,13 @@ map.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 BN_EPS = 1e-5
@@ -122,6 +132,10 @@ class BatchNorm(nn.BatchNorm2d):
     ``freeze_bn`` do not reduce."""
 
     sync_group = None
+    # set while torch.utils.checkpoint runs the forward again in the
+    # backward (:func:`_recomputing`): the running statistics moved in the
+    # first forward and stay where they are
+    recomputing = False
 
     def forward(self, x):
         if not self.training:
@@ -131,6 +145,8 @@ class BatchNorm(nn.BatchNorm2d):
             return self._synced(x)
         y, mean, invstd = torch.native_batch_norm(
             x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        if self.recomputing:
+            return y
         with torch.no_grad():
             # invstd = (var + eps)^-1/2 of the biased variance
             self.running_mean.lerp_(mean, self.momentum)
@@ -157,10 +173,31 @@ class BatchNorm(nn.BatchNorm2d):
                              self.sync_group) / n
         scale = torch.rsqrt(var + self.eps) * self.weight
         y = dev * scale[None, :, None, None] + self.bias[None, :, None, None]
+        if self.recomputing:
+            return y.to(x.dtype)
         with torch.no_grad():
             self.running_mean.lerp_(mean.detach(), self.momentum)
             self.running_var.lerp_(var.detach(), self.momentum)
         return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def _recomputing(unit: nn.Module):
+    """Mark ``unit``'s batch norms as recomputing for the duration."""
+    norms = [m for m in unit.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.recomputing = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.recomputing = False
+
+
+def _remat_contexts(unit: nn.Module):
+    """``checkpoint``'s ``context_fn``: nothing around the first forward,
+    :func:`_recomputing` around the recompute."""
+    return contextlib.nullcontext(), _recomputing(unit)
 
 
 def _bn(channels: int, bn_momentum: float) -> BatchNorm:
@@ -228,16 +265,20 @@ class ResNetV1(nn.Module):
     ``forward`` takes NCHW and returns the pre-pool NCHW feature map
     (B, 2048, h, w) in ``dtype`` when ``global_pool=False``, else
     (B, 2048).  The convs are drawn from ``generator`` as Flax draws
-    them; the parameters are float32 whatever ``dtype``.
+    them; the parameters are float32 whatever ``dtype``.  With
+    ``remat_units`` each bottleneck is rematerialized in the backward
+    (when gradients are on).
     """
 
     def __init__(self, stage_sizes: Sequence[int],
                  stage_strides: Sequence[int] = (2, 2, 2, 1),
                  bn_momentum: float = 0.997,
                  generator: torch.Generator | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 remat_units: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.remat_units = remat_units
         self.conv1 = Conv2d(3, 64, 7, stride=2, bias=False)
         self.conv1_bn = _bn(64, bn_momentum)
         self.unit_names = []
@@ -263,8 +304,19 @@ class ResNetV1(nn.Module):
         x = conv2d_same(x, self.conv1, 7, 2)
         x = F.relu(self.conv1_bn(x))
         x = max_pool_same(x)
+        remat = self.remat_units and torch.is_grad_enabled()
         for name in self.unit_names:
-            x = self._modules[name](x)
+            unit = self._modules[name]
+            if remat:
+                # no RNG in a unit, and its recompute's shapes are its
+                # forward's: checkpoint's two checks would only add host
+                # time to a host-bound step
+                x = torch.utils.checkpoint.checkpoint(
+                    unit, x, use_reentrant=False, preserve_rng_state=False,
+                    determinism_check="none",
+                    context_fn=functools.partial(_remat_contexts, unit))
+            else:
+                x = unit(x)
         if global_pool:
             x = x.mean(dim=(2, 3))
         return x

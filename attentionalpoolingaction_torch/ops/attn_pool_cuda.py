@@ -36,6 +36,7 @@ CUDA tensors that need one, they raise.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 
@@ -69,6 +70,8 @@ _X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
 launch_counts = {"saliency_summary": 0, "project_logits": 0,
                  "pool_backward": 0}
+# per thread: where the wrappers count while a CUDA graph is captured
+_recording = threading.local()
 
 
 def reset_launch_counts() -> None:
@@ -78,8 +81,35 @@ def reset_launch_counts() -> None:
 
 
 def _count(name: str) -> None:
+    counts = getattr(_recording, "counts", None)
+    if counts is not None:
+        counts[name] += 1
+        return
     with _count_lock:
         launch_counts[name] += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """The launches this thread's wrappers make inside the block, counted
+    into the dict it yields and not into :data:`launch_counts`: a CUDA
+    graph capture records launches and runs none.  Each replay of the
+    graph adds them with :func:`add_launches`."""
+    counts = dict.fromkeys(launch_counts, 0)
+    prev = getattr(_recording, "counts", None)
+    _recording.counts = counts
+    try:
+        yield counts
+    finally:
+        _recording.counts = prev
+
+
+def add_launches(counts: dict) -> None:
+    """Count the launches of a replayed CUDA graph (the counts its capture
+    recorded)."""
+    with _count_lock:
+        for name, n in counts.items():
+            launch_counts[name] += n
 
 
 # -- plain versions ----------------------------------------------------------

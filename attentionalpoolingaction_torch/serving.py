@@ -18,10 +18,12 @@ Port of the JAX package's ``serving.py``.
     ordered frames or as one container (OpenCV, where it is installed).
   * **Data parallelism.** With ``data_parallel`` and more than one local
     card, one replica of the weights a card: buckets round up to multiples
-    of the replicas, a bucket splits evenly over them, each part runs on
-    its card's stream, and the logits are gathered to the host.  With one
-    card (or the flag off) it is single-device dispatch, as JAX's rule
-    is.  This is the one place where a process drives several cards.
+    of the replicas, a bucket splits evenly over them, and the logits are
+    gathered to the host.  With one card (or the flag off) it is
+    single-device dispatch, as JAX's rule is.  This is the one place
+    where a process drives several cards.  Replicas on cards replay CUDA
+    graphs (:class:`_ReplicaGraph`): one launch a replica and call, where
+    eager dispatch costs the host ~400 launches a replica.
 
 The ``Predictor`` is built from Flax-layout (params, batch_stats) arrays
 through the weight bridge (``convert.py``); ``load_predictor`` builds one
@@ -53,6 +55,7 @@ from attentionalpoolingaction_torch.data.datasets import get_dataset
 from attentionalpoolingaction_torch.data.grain_pipeline import _segment_picks
 from attentionalpoolingaction_torch.device import resolve_device
 from attentionalpoolingaction_torch.models import inference as inf
+from attentionalpoolingaction_torch.ops import attn_pool_cuda as apc
 from attentionalpoolingaction_torch.train import build_model, normalize_images
 
 DEFAULT_BUCKETS = (1, 8, 32, 128)
@@ -112,7 +115,7 @@ def decode_video_frames(data: bytes, clip_frames: int):
     container as RGB uint8 arrays, and the container's frame count, read
     by OpenCV in one pass that grabs past the frames it does not pick (the
     JAX package's function).  Raises ``ValueError`` where OpenCV is not
-    installed (the card's machine has none), or the bytes are no video."""
+    installed, or the bytes are no video."""
     import os
     import tempfile
 
@@ -258,6 +261,64 @@ class ServingStats:
         return "\n".join(lines) + "\n"
 
 
+class _ReplicaGraph:
+    """The forward of one replica at one input shape and dtype, captured
+    as a CUDA graph on the replica's stream, with its static input and
+    output, pinned host buffers and an event.  ``weights`` are the ones
+    captured (kept alive with the graph, which reads them in place).
+
+    A replay passes through no kernel wrapper, so the launches that the
+    capture recorded (``apc.recording_launches``) are added to the
+    counters at each replay; the capture itself counts none, and the eager
+    warm-up before it counts as the launches it makes.  A graph keeps the
+    backend settings (TF32) in force when it was captured."""
+
+    def __init__(self, predictor, weights, device: torch.device, shape,
+                 dtype: torch.dtype, stream, pool):
+        self.weights, self.device, self.stream = weights, device, stream
+        self.input = torch.zeros(shape, dtype=dtype, device=device)
+        self.host_in = None         # pinned, made for the first host input
+        with torch.cuda.device(device):
+            stream.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(stream):
+                # eager first: builds the kernels, picks cuDNN's algorithms
+                # and fills the heads' caches outside the graph
+                predictor.logits(weights, self.input, device=device)
+            self.graph = torch.cuda.CUDAGraph()
+            with apc.recording_launches() as self.launches, \
+                    torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                                     capture_error_mode="thread_local"):
+                self.output = predictor.logits(weights, self.input,
+                                               device=device)
+        self.host_out = torch.empty(self.output.shape, dtype=torch.float32,
+                                    pin_memory=True)
+        self.done = torch.cuda.Event()
+
+    def launch(self, part) -> None:
+        """Copy ``part`` (a host array or a tensor on any card) into the
+        static input, replay, and queue the copy of the logits to the
+        host, all on the replica's stream."""
+        stream = self.stream
+        if isinstance(part, torch.Tensor):
+            stream.wait_stream(torch.cuda.current_stream(part.device))
+        else:
+            if self.host_in is None:
+                self.host_in = torch.empty_like(self.input, device="cpu",
+                                                pin_memory=True)
+            self.host_in.numpy()[...] = part
+            part = self.host_in
+        with torch.cuda.device(self.device), torch.cuda.stream(stream):
+            self.input.copy_(part, non_blocking=True)
+            self.graph.replay()
+            self.host_out.copy_(self.output, non_blocking=True)
+            self.done.record(stream)
+        apc.add_launches(self.launches)
+
+    def read(self) -> np.ndarray:
+        self.done.synchronize()
+        return self.host_out.numpy().copy()
+
+
 class BucketedPredictor:
     """Shape-bucketed padded batch inference over a forward fn, and the
     byte path in front of it.
@@ -274,6 +335,9 @@ class BucketedPredictor:
     supports_clips = False
     # the devices of the data-parallel replicas; empty: one device
     replicas: tuple = ()
+    # replicas on cards: each replica's captured forwards, by (replica,
+    # input shape, dtype); None where dispatch is eager
+    _replica_graphs: dict | None = None
 
     def _init_data_parallel(self, data_parallel: bool, buckets,
                             devices=None) -> tuple:
@@ -282,8 +346,10 @@ class BucketedPredictor:
         default every local card of the predictor's device type), buckets
         round UP to multiples of the device count and
         :attr:`replicas` lists the devices; otherwise single-device
-        dispatch.  Returns the buckets."""
+        dispatch.  Replicas on cards run through CUDA graphs (a stream
+        and a memory pool each).  Returns the buckets."""
         self.replicas = ()
+        self._replica_graphs = None
         if devices is None:
             devices = ([torch.device("cuda", i)
                         for i in range(torch.cuda.device_count())]
@@ -292,21 +358,66 @@ class BucketedPredictor:
             return tuple(sorted(set(int(b) for b in buckets)))
         n = len(devices)
         self.replicas = tuple(torch.device(d) for d in devices)
+        if all(d.type == "cuda" for d in self.replicas):
+            self._replica_graphs = {}
+            self._graph_lock = threading.Lock()
+            self._streams, self._pools = [], []
+            for d in self.replicas:
+                with torch.cuda.device(d):
+                    self._streams.append(torch.cuda.Stream(d))
+                    self._pools.append(torch.cuda.graph_pool_handle())
         return tuple(sorted({-(-int(b) // n) * n for b in buckets}))
 
     def _fwd(self, weights, images) -> np.ndarray:
         """(B, C) float32 host logits; with replicas, the batch split
         evenly over them, each part launched on its card before any is
-        read back."""
+        read back: on cards as a replay of the replica's CUDA graph for
+        the part's shape and dtype (captured at the first call, by
+        :meth:`warmup`)."""
         if not self.replicas:
             return self.logits(weights, images).cpu().numpy()
         parts = (torch.tensor_split(images, len(self.replicas))
                  if isinstance(images, torch.Tensor)
                  else np.array_split(images, len(self.replicas)))
-        outs = [self.logits(w, part, device=dev)
-                for w, dev, part in zip(weights, self.replicas, parts)
-                if len(part)]
-        return np.concatenate([o.cpu().numpy() for o in outs])
+        if self._replica_graphs is None:
+            outs = [self.logits(w, part, device=dev)
+                    for w, dev, part in zip(weights, self.replicas, parts)
+                    if len(part)]
+            return np.concatenate([o.cpu().numpy() for o in outs])
+        with self._graph_lock:
+            runs = [(self._graph(i, w, tuple(part.shape),
+                                 torch.as_tensor(part[:0]).dtype), part)
+                    for i, (w, part) in enumerate(zip(weights, parts))
+                    if len(part)]
+            for g, part in runs:
+                g.launch(part)
+            return np.concatenate([g.read() for g, _ in runs])
+
+    def _graph(self, i: int, weights, shape: tuple,
+               dtype: torch.dtype) -> _ReplicaGraph:
+        """Replica ``i``'s graph for inputs of ``shape`` and ``dtype``,
+        captured with ``weights`` (again, where the weights changed)."""
+        key = (i, shape, dtype)
+        g = self._replica_graphs.get(key)
+        if g is None or g.weights is not weights:
+            # the old graph goes first: its memory returns to the pool
+            self._replica_graphs.pop(key, None)
+            g = self._replica_graphs[key] = _ReplicaGraph(
+                self, weights, self.replicas[i], shape, dtype,
+                self._streams[i], self._pools[i])
+        return g
+
+    def _swap_weights(self, weights) -> None:
+        """Serve ``weights`` (one set a replica where there are replicas)
+        from the next dispatch on; the captured graphs are captured again
+        with them before this returns."""
+        if self._replica_graphs is None:
+            self._weights = weights
+            return
+        with self._graph_lock:
+            self._weights = weights
+            for i, shape, dtype in list(self._replica_graphs):
+                self._graph(i, weights[i], shape, dtype)
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -547,7 +658,7 @@ class Predictor(BucketedPredictor):
         ones and finish on them; requests after the (atomic) swap see the
         new ones.  The int8 path folds, calibrates (on the same retained
         images) and quantizes the new weights."""
-        self._weights = self._make_all(params, batch_stats)
+        self._swap_weights(self._make_all(params, batch_stats))
         self.stats.inc("serving_reloads_total")
         if step is not None:
             self.step = int(step)

@@ -44,7 +44,9 @@ optimizer's state (``parallel/zero1.py``).  ``train`` builds a mesh only
 when there is more than one process and ``mesh_shape`` asks for more than
 one device, as the JAX package does; otherwise it trains alone.
 
-Not ported yet, and raising ``NotImplementedError``: ``remat_units``.
+With ``remat_units`` each bottleneck of the backbone is rematerialized
+in the backward (``models/resnet.py``), its batch norms moving their
+running statistics once a step.
 """
 
 from __future__ import annotations
@@ -207,14 +209,16 @@ def build_model(cfg: config_lib.TrainConfig, device=None,
     """The config's ActionModel in eval mode on ``device`` (default
     ``cuda``), drawn from ``generator``.  The backbone computes in
     bfloat16 with ``bf16_backbone``, else in float32; the parameters, the
-    heads and the logits are float32 either way."""
+    heads and the logits are float32 either way.  ``remat_units``
+    rematerializes its bottlenecks in the backward."""
     spec = get_dataset(cfg.dataset)
     return get_model(
         cfg.backbone, num_classes=spec.num_classes, pooling=cfg.pooling,
         rank=cfg.rank, num_joints=spec.num_joints,
         bn_momentum=cfg.bn_momentum, image_size=cfg.image_size,
         freeze_bn=cfg.freeze_bn, generator=generator, device=device,
-        dtype=torch.bfloat16 if cfg.bf16_backbone else torch.float32)
+        dtype=torch.bfloat16 if cfg.bf16_backbone else torch.float32,
+        remat_units=cfg.remat_units)
 
 
 # -- optimizer ----------------------------------------------------------------
@@ -396,11 +400,6 @@ def make_loss_fn(spec: DatasetSpec, cfg: config_lib.TrainConfig,
 
 # -- state and step -----------------------------------------------------------
 
-def _check_ported(cfg: config_lib.TrainConfig) -> None:
-    if cfg.remat_units:
-        raise NotImplementedError("remat_units is not ported yet")
-
-
 def create_state(cfg: config_lib.TrainConfig, *, device=None,
                  variables: tuple[Mapping, Mapping] | None = None,
                  mesh=None) -> tuple[TrainState, DatasetSpec]:
@@ -565,7 +564,6 @@ def make_train_step(spec: DatasetSpec, cfg: config_lib.TrainConfig,
     batch is this rank's rows: the losses divide by global counts, the
     gradients are all-reduced over the data axis before the clip, and the
     metrics are the global batch's, equal on every rank."""
-    _check_ported(cfg)
     data = mesh_lib.axis_size(mesh, "data")
     group = mesh_lib.axis_group(mesh, "data")
     loss_fn = make_loss_fn(spec, cfg, group)
@@ -709,7 +707,9 @@ def train(cfg: config_lib.TrainConfig, *, train_iter: Iterable | None = None,
     ``cfg.checkpoint_every`` steps, at the last step and on a stop; a
     stateful iterator (the pipeline's, or one with
     ``get_state``/``set_state``) has its JSON state saved beside each step
-    and restored with it into the outermost wrapper.  ``stop_event`` (a
+    and restored with it into the outermost wrapper.  Saves are written
+    in the background while the next steps run; the run waits for the
+    last one before it returns, on a stop too.  ``stop_event`` (a
     ``threading.Event``): when set, by the caller or by the SIGTERM
     handler installed here (on the main thread, with a manager), the loop
     checkpoints the step in flight and returns.
@@ -752,13 +752,13 @@ def train(cfg: config_lib.TrainConfig, *, train_iter: Iterable | None = None,
             log.info("resumed data iterator from %s", iter_path)
 
     def save_checkpoint(at_step: int):
+        # queued: the write runs behind the next steps (checkpoint.py)
         ckpt_lib.save(checkpoint_manager, state)
         if stateful_iter is not None:
             _grain_state_path(checkpoint_manager, at_step, rank).write_text(
                 json.dumps(stateful_iter.get_state()))
-        multihost.barrier()
-        if stateful_iter is not None and rank == 0:
-            _gc_grain_state(checkpoint_manager, keep_step=at_step)
+            if rank == 0:
+                _gc_grain_state(checkpoint_manager, keep_step=at_step)
 
     # Preemptions arrive as SIGTERM.  The handler only sets the flag; the
     # loop finishes the step in flight, saves it and returns, so that the
@@ -807,6 +807,9 @@ def train(cfg: config_lib.TrainConfig, *, train_iter: Iterable | None = None,
                     "stop requested (SIGTERM/preemption): checkpointed at "
                     "step %d and exiting cleanly", step)
                 break
+        if checkpoint_manager is not None:
+            # the last save commits (or raises) before the run returns
+            checkpoint_manager.wait_until_finished()
     finally:
         if prev_handler is not None:
             signal.signal(signal.SIGTERM, prev_handler)
@@ -863,9 +866,10 @@ def _grain_state_path(manager, step: int,
 
 
 def _gc_grain_state(manager, keep_step: int) -> None:
-    """Drop the iterator state files of pruned steps, so that no stale
-    file pairs with a deleted step; ``keep_step`` is the step just saved."""
-    keep = set(manager.all_steps()) | {keep_step}
+    """Drop the iterator state files of the steps that the save of
+    ``keep_step`` (just queued) prunes, so that no stale file pairs with a
+    deleted step, without waiting for that save."""
+    keep = set(manager.retained_steps(keep_step))
     for p in pathlib.Path(manager.directory).glob("grain_iter_*.json"):
         m = re.fullmatch(r"grain_iter_(\d+)(?:_p\d+)?\.json", p.name)
         if m and int(m.group(1)) not in keep:

@@ -130,6 +130,8 @@ def main(argv=None):
                     best_keeper.update(step, results, state)
 
         hooks.append(eval_hook)
+    else:
+        best_keeper = None
     if args.attn_summary_every:
         from attentionalpoolingaction_torch.utils import visualize
 
@@ -146,6 +148,10 @@ def main(argv=None):
             cfg, num_steps=args.num_steps, checkpoint_manager=mgr,
             hooks=hooks, device=device)
     finally:
+        # a save still in flight commits, or raises, before the CLI ends
+        mgr.wait_until_finished()
+        if best_keeper is not None:
+            best_keeper.wait_until_finished()
         writer.close()
     log.info("done at step %d", state.step)
     return state

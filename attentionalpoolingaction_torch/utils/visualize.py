@@ -3,8 +3,8 @@ bottom-up saliency (X b) as heatmap overlays on the input image.  Port of
 the JAX package's ``utils/visualize.py``.
 
 The JAX package draws with OpenCV (``cv2.resize`` and
-``cv2.applyColorMap``); the card's machine has no OpenCV, so this module
-needs none, and it draws on the maps' device: bilinear upsampling is
+``cv2.applyColorMap``); this module needs no OpenCV (the card's path
+must not), and it draws on the maps' device: bilinear upsampling is
 ``F.interpolate`` (half-pixel centres, the edge pixels repeated, as
 ``cv2.resize(INTER_LINEAR)``), the JET colormap is the module's own
 256 x 3 table (OpenCV's, entry for entry), and the blend repeats the JAX

@@ -182,7 +182,38 @@ Phases; any failure raises and the process exits non-zero:
    against this process's mAP (1e-12), every kernel counted on every
    rank, and the data-parallel step's ms (gloo through the host, not
    NCCL: it says nothing of NCCL's speed).
-11. A ``kernels`` JSON line (``launches`` from phase 3's serving run for
+11. From raw data.  (a) The dataset converters in subprocesses
+   (``python -m attentionalpoolingaction_torch.data.convert_mpii``,
+   ``convert_hico``, ``convert_hmdb``): an MPII release in small (64
+   images naming copies of the JPEG fixtures, fixture 0 under EXIF
+   orientation 6, and a ``.mat`` written by ``scipy.io.savemat`` with
+   ``annolist``, ``act.act_id`` with gaps and ``img_train``), a HICO
+   ``anno.mat`` (600 x N of +1/-1/0/NaN) and, where OpenCV is installed
+   (``cv2_installed`` is printed), MJPG videos of fixture frames: record
+   counts, the label map, labels, keypoints and heights and widths
+   against the frame headers, each split read back through the input
+   pipeline on the card; without OpenCV the HMDB converter must fail with
+   JAX's ``ModuleNotFoundError``.  (b) ``train_cli --config
+   mpii_rank1_224 --set remat_units=true`` at full width from the
+   converted MPII records, saving every 2 steps, with a real SIGTERM as
+   step 3 starts (step 2's save in flight), resumed to step 4: losses and
+   batches equal ``train.train``'s straight run bit for bit (cuDNN
+   deterministic); ``eval_cli`` of the converted val split; each counted.
+   The remat step against the plain one from one state within the gap
+   of two plain steps (parameters, running statistics, loss), and the
+   step with and without remat in turns: median ms and
+   ``torch.cuda.max_memory_allocated``.  (c) The same timing and memory
+   at ``mpii_rank5_450_mesh``'s width (450 px, bf16, batch 64).  (d)
+   Async saves of config #1's 347 MB state: the part that blocks the
+   step thread against the whole write, steps while a write runs against
+   steps without, the step restored after ``wait_until_finished`` bitwise
+   equal to the state at its save.  (e) Data-parallel serving through
+   CUDA graphs with two replicas on one card: ``mpii_rank1_224``'s
+   probabilities within 1e-6 of the eager one-device path (TF32 off),
+   launches by the replay rule, a reload captured again, int8 with
+   per-example scales and an ``hmdb51_clip8`` clip against eager
+   dispatch, and bucket 32 against one device in turns.
+12. A ``kernels`` JSON line (``launches`` from phase 3's serving run for
    the forward pooling kernels, from phase 4's ``train`` for
    ``pool_backward`` and from phase 6's ``train_cli`` for the colour
    kernel; ``train_launches`` from phase 4's ``train``, ``eval_launches``
@@ -196,8 +227,10 @@ Phases; any failure raises and the process exits non-zero:
    ``mesh5_train_launches``, ``mesh5_eval_launches`` and
    ``mesh5_serve_launches`` from phase 10's config #5 runs and
    ``gloo2_dp_launches``, ``gloo2_zero1_launches`` and ``gloo2_tp_launches``
-   (one count a rank) from its two gloo ranks, each kernel counted over
-   each run), then the last line ``{"ok": true, "device": {...}}``.
+   (one count a rank) from its two gloo ranks, ``raw_train_launches``
+   and ``raw_eval_launches`` from phase 11's ``train_cli`` (both calls)
+   and ``eval_cli``, each kernel counted over each run), then the last
+   line ``{"ok": true, "device": {...}}``.
 
 The kernels (``csrc/attn_pool.cu``, ``csrc/attn_pool_backward.cu``,
 ``csrc/jpeg_decode.cu`` with ``nvcc``, ``csrc/tfrecord_index.cc`` with the
@@ -210,9 +243,10 @@ the ``(N/2, 2)`` data x model step of ``hico`` against one process, the
 stop raised on the last rank, the gathered eval of 5 records against one
 process; config #5 over the ``(N,)`` mesh at 64/N rows a card against one
 card with the whole batch, timed in the same call; and data-parallel
-serving over the N cards in one process (one replica a card):
-``mpii_rank1_224``'s probabilities against one card's, config #5 at
-bucket 32 against one card in turns, counted.
+serving over the N cards in one process (one replica a card, each
+replaying its CUDA graphs): ``mpii_rank1_224``'s probabilities against
+one card's, config #5 at bucket 32 against one card in turns (it fails
+if the replicas are slower), counted.
 
 ``--profile`` adds a torch.profiler breakdown of a call at each bucket, of
 one training step, of a pipelined pass of phase 5's eval loop, in phase
@@ -229,6 +263,7 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import glob
 import hashlib
 import http.client
 import importlib.util
@@ -1245,8 +1280,10 @@ def phase_checkpointed_run(card, profile=False):
             cfg, device="cuda", variables=convert.random_flax_variables(
                 cfg.backbone, num_classes=393, rank=cfg.rank,
                 num_positions=49, seed=0))
-        checkpoint.save(checkpoint.make_manager(f"{workdir}/init"), init)
-        del init
+        init_mgr = checkpoint.make_manager(f"{workdir}/init")
+        checkpoint.save(init_mgr, init)
+        init_mgr.wait_until_finished()
+        del init, init_mgr
         run_cfg = dataclasses.replace(
             cfg, workdir=workdir, init_checkpoint=f"{workdir}/init",
             checkpoint_every=2, max_checkpoints=2, log_every=1,
@@ -1283,12 +1320,18 @@ def phase_checkpointed_run(card, profile=False):
             raise AssertionError(f"restored step 3 differs from the live "
                                  f"state: step {got_step}, {bad[:5]}")
         timing = checkpoint.make_manager(f"{workdir}/timing")
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         checkpoint.save(timing, live)
+        torch.cuda.synchronize()
+        out["save_blocking_s"] = time.perf_counter() - t0
+        timing.wait_until_finished()
         out["save_s"] = time.perf_counter() - t0
         out["step_bytes"] = os.path.getsize(
             timing.step_dir(3) / checkpoint.CHECKPOINT_FILE)
-        log(f"checkpoint: save {out['save_s']:.3f} s, restore onto the card "
+        log(f"checkpoint: save {out['save_s']:.3f} s to the commit (the "
+            f"step thread blocked {out['save_blocking_s']:.3f} s of it, the "
+            f"first save of its manager), restore onto the card "
             f"{out['restore_s']:.3f} s, {out['step_bytes']} bytes a step "
             f"({len(want)} tensors, bitwise equal after restore) on {card}")
         del fresh, live, timing
@@ -2394,7 +2437,9 @@ def seeded_init(name, workdir, seed):
     path = os.path.join(workdir, f"{name}_init")
     state, _ = train.create_state(
         cfg, device="cuda", variables=precision.seeded_variables(cfg, seed))
-    checkpoint.save(checkpoint.make_manager(path), state)
+    mgr = checkpoint.make_manager(path)
+    checkpoint.save(mgr, state)
+    mgr.wait_until_finished()       # other processes read it
     return path
 
 
@@ -3281,9 +3326,10 @@ def phase_http_serving(card, golden_bound, profile=False):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serving_") as d:
         cfg = dataclasses.replace(base, workdir=d)
         state, _ = train.create_state(cfg, device="cuda", variables=variables)
-        checkpoint.save(checkpoint.make_manager(
-            os.path.join(d, "checkpoints")), state)
-        del state
+        mgr = checkpoint.make_manager(os.path.join(d, "checkpoints"))
+        checkpoint.save(mgr, state)
+        mgr.wait_until_finished()   # predict_cli reads it in a subprocess
+        del state, mgr
         pred = serving.load_predictor(cfg, buckets=(1, 8, 32), device="cuda")
         pred.warmup()
         out["http"] = check_http(pred, names, datas, crops, png_data,
@@ -3337,8 +3383,9 @@ def export_artifact(args, what):
 def seeded_checkpoint(cfg, variables):
     """A port checkpoint of ``variables`` under ``cfg.workdir``."""
     state, _ = train.create_state(cfg, device="cuda", variables=variables)
-    checkpoint.save(checkpoint.make_manager(
-        os.path.join(cfg.workdir, "checkpoints")), state)
+    mgr = checkpoint.make_manager(os.path.join(cfg.workdir, "checkpoints"))
+    checkpoint.save(mgr, state)
+    mgr.wait_until_finished()       # other processes read it
 
 
 def artifact_buckets(arts, crops_u8):
@@ -4211,6 +4258,673 @@ def phase_mesh(card):
     return out
 
 
+# -- phase 11: from raw data --------------------------------------------------
+
+RAW_MPII_IMAGES = 64
+RAW_ACT_IDS = (1, 2, 5, 9, 40, 77, 397)   # sparse, with gaps, as MPII's
+RAW_HICO_IMAGES = 12                      # a split
+RAW_SHARDS = 2
+RAW_STEPS = 4
+RAW_STOP = 3             # SIGTERM as step 3 starts: step 2's save in flight
+REMAT_ROUNDS = 3
+REPLICA_PROB_ATOL = 1e-6
+
+
+def struct_array(fields, rows):
+    """A MATLAB struct array of ``rows`` (dicts) for ``scipy.io.savemat``."""
+    a = np.zeros((1, len(rows)), dtype=[(f, "O") for f in fields])
+    for i, row in enumerate(rows):
+        for f in fields:
+            a[0, i][f] = row[f]
+    return a
+
+
+def host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def write_raw_mpii(d, datas):
+    """An MPII release in small: ``RAW_MPII_IMAGES`` images named after
+    copies of the JPEG fixtures (fixture 0 under EXIF orientation 6, whose
+    frame header is not its displayed size) and an annotation ``.mat``
+    with ``annolist`` (``image.name``, ``annorect.annopoints.point`` with
+    ``id/x/y/is_visible``; some images without a person), ``act.act_id``
+    (sparse ids, some -1) and ``img_train``."""
+    import scipy.io
+
+    rng = np.random.default_rng(110)
+    images = os.path.join(d, "mpii_images")
+    os.makedirs(images)
+    annolist, acts, flags = [], [], []
+    for i in range(RAW_MPII_IMAGES):
+        k = i % len(datas)
+        data = with_orientation(datas[k], 6) if k == 0 else datas[k]
+        name = f"{i:09d}.jpg"
+        with open(os.path.join(images, name), "wb") as f:
+            f.write(data)
+        h, w = jpeg.frame_size(data)
+        joints = sorted(rng.choice(16, int(rng.integers(4, 17)), False))
+        points = struct_array(("id", "x", "y", "is_visible"), [
+            {"id": int(j), "x": float(rng.uniform(0, w)),
+             "y": float(rng.uniform(0, h)), "is_visible": int(j % 3 != 0)}
+            for j in joints])
+        rect = (np.zeros((0, 0)) if i % 9 == 4 else struct_array(
+            ("annopoints",), [{"annopoints": {"point": points}}]))
+        annolist.append({"image": {"name": name}, "annorect": rect})
+        acts.append({"act_id": -1 if i % 11 == 3
+                     else int(RAW_ACT_IDS[int(rng.integers(len(RAW_ACT_IDS)))])})
+        flags.append(0 if i % 13 == 5 else 1)
+    mat = os.path.join(d, "mpii_release.mat")
+    scipy.io.savemat(mat, {"RELEASE": {
+        "annolist": struct_array(("image", "annorect"), annolist),
+        "act": struct_array(("act_id",), acts),
+        "img_train": np.asarray(flags, np.float64)[None]}})
+    return mat, images
+
+
+def write_raw_hico(d, datas):
+    """HICO in small: ``RAW_HICO_IMAGES`` images a split under
+    ``train2015/`` and ``test2015/`` (copies of the fixtures, fixture 0
+    under EXIF orientation 6) and an ``anno.mat`` whose 600 x N matrices
+    hold +1, -1, 0 and NaN."""
+    import scipy.io
+
+    rng = np.random.default_rng(111)
+    root = os.path.join(d, "hico_images")
+    mat, annos = {}, {}
+    for split, sub in (("train", "train2015"), ("test", "test2015")):
+        os.makedirs(os.path.join(root, sub))
+        names = []
+        for i in range(RAW_HICO_IMAGES):
+            k = (i + (split == "test")) % len(datas)
+            data = with_orientation(datas[k], 6) if k == 0 else datas[k]
+            names.append(f"HICO_{split}2015_{i:08d}.jpg")
+            with open(os.path.join(root, sub, names[-1]), "wb") as f:
+                f.write(data)
+        anno = rng.choice([1.0, -1.0, 0.0, np.nan], (600, RAW_HICO_IMAGES),
+                          p=[0.02, 0.08, 0.85, 0.05])
+        mat[f"list_{split}"] = np.array(names, dtype=object)[:, None]
+        mat[f"anno_{split}"] = anno
+        annos[split] = anno
+    path = os.path.join(d, "hico_anno.mat")
+    scipy.io.savemat(path, mat)
+    return path, root, annos
+
+
+def run_converter(module, args):
+    """``python -m attentionalpoolingaction_torch.data.<module> args`` in a
+    subprocess; its completed process."""
+    return subprocess.run(
+        [sys.executable, "-m", f"attentionalpoolingaction_torch.data.{module}",
+         *args], cwd=HERE, capture_output=True, text=True, timeout=300)
+
+
+def shard_records(out, split):
+    """The records of ``split`` in the converter's shards, in file order."""
+    paths = sorted(glob.glob(os.path.join(out, f"{split}-*.tfrecord")))
+    if len(paths) != RAW_SHARDS:
+        raise AssertionError(f"{split} shards: {paths}")
+    return [r for p in paths for r in records.read_tfrecord(p)]
+
+
+def check_frame_sizes(what, recs):
+    """Each record's height and width are its JPEG's frame header's, as
+    ``tf.io.extract_jpeg_shape`` gives them; returns how many differ from
+    the displayed size (the oriented fixture)."""
+    swapped = 0
+    for raw in recs:
+        feats = records.decode_example(raw)
+        data = feats["image/encoded"][0]
+        hw = (int(feats["image/height"][0]), int(feats["image/width"][0]))
+        if hw != jpeg.frame_size(data):
+            raise AssertionError(f"{what}: record size {hw}, frame header "
+                                 f"{jpeg.frame_size(data)}")
+        swapped += hw != jpeg.image_size(data)
+    return swapped
+
+
+def convert_mpii_raw(d, datas):
+    """``convert_mpii`` over the raw release; its records against the
+    annotation parsed here: counts a split, labels by the label map,
+    keypoints, frame sizes."""
+    import scipy.io
+
+    from attentionalpoolingaction_torch.data import convert_mpii
+
+    mat, images = write_raw_mpii(d, datas)
+    out = os.path.join(d, "mpii_records")
+    t0 = time.perf_counter()
+    proc = run_converter("convert_mpii", [
+        "--mat", mat, "--images_dir", images, "--out_dir", out,
+        "--shards", str(RAW_SHARDS)])
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"convert_mpii: {proc.stderr[-3000:]}")
+    entries = convert_mpii.parse_mpii_mat(scipy.io.loadmat(
+        mat, squeeze_me=True, struct_as_record=False)["RELEASE"])
+    label_map = convert_mpii.build_label_map(entries)
+    if sorted(label_map) != sorted(set(RAW_ACT_IDS)) or \
+            list(label_map.values()) != list(range(len(RAW_ACT_IDS))):
+        raise AssertionError(f"label map {label_map}")
+    spec = train.get_dataset("mpii")
+    out_counts = {}
+    swapped = 0
+    for split in ("train", "val"):
+        want = [e for e in entries if e["is_train"] and e["act_id"] >= 0
+                and convert_mpii.assign_split(e["image_name"], 0.315)
+                == split]
+        recs = shard_records(out, split)
+        got = sorted((int(p["label"]), p["keypoints"].tobytes())
+                     for p in (records.parse_example(r, spec) for r in recs))
+        exp = sorted((label_map[e["act_id"]],
+                      (e["keypoints"] if e["keypoints"] is not None else
+                       np.full((16, 2), -1.0, np.float32)).tobytes())
+                     for e in want)
+        if got != exp:
+            raise AssertionError(f"convert_mpii {split}: {len(got)} records "
+                                 f"vs {len(exp)} labeled images")
+        swapped += check_frame_sizes(f"convert_mpii {split}", recs)
+        out_counts[split] = len(recs)
+    if not swapped:
+        raise AssertionError("no record of the oriented fixture")
+    log(f"convert_mpii (a subprocess, {wall:.1f} s): {RAW_MPII_IMAGES} "
+        f"images -> {out_counts} records of {len(label_map)} classes (act "
+        f"ids {sorted(label_map)}), labels and keypoints as parsed, every "
+        f"height and width the frame header's ({swapped} oriented records "
+        "whose displayed size differs)")
+    return {"records": out_counts, "classes": len(label_map),
+            "oriented_records": swapped, "convert_s": wall,
+            "train": os.path.join(out, "train-*.tfrecord"),
+            "val": os.path.join(out, "val-*.tfrecord")}
+
+
+def convert_hico_raw(d, datas):
+    """``convert_hico`` over the raw ``anno.mat``: counts, multi-hot and
+    known labels, frame sizes; the test split through the eval pipeline on
+    the card."""
+    mat, root, annos = write_raw_hico(d, datas)
+    out = os.path.join(d, "hico_records")
+    t0 = time.perf_counter()
+    proc = run_converter("convert_hico", [
+        "--mat", mat, "--images_dir", root, "--out_dir", out,
+        "--shards", str(RAW_SHARDS)])
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"convert_hico: {proc.stderr[-3000:]}")
+    spec = train.get_dataset("hico")
+    # round-robin shards read in file order: even items, then odd ones
+    order = [i for s in range(RAW_SHARDS)
+             for i in range(s, RAW_HICO_IMAGES, RAW_SHARDS)]
+    for split, anno in annos.items():
+        recs = shard_records(out, split)
+        clean = np.nan_to_num(anno[:, order])
+        got = [records.parse_example(r, spec, include_anno=True)
+               for r in recs]
+        if len(got) != RAW_HICO_IMAGES or not all(
+                np.array_equal(g["label"], clean[:, j] > 0)
+                and np.array_equal(g["anno"], np.sign(clean[:, j]))
+                for j, g in enumerate(got)):
+            raise AssertionError(f"convert_hico {split}: labels differ")
+        check_frame_sizes(f"convert_hico {split}", recs)
+    batches = list(grain_pipeline.make_eval_dataset(
+        os.path.join(out, "test-*.tfrecord"), spec, batch_size=8,
+        image_size=224, device="cuda"))
+    labels = np.concatenate([host(b["label"])[host(b["mask"]) > 0]
+                             for b in batches])
+    if not np.array_equal(labels, np.nan_to_num(annos["test"][:, order]).T
+                          > 0) or batches[0]["image"].device.type != "cuda":
+        raise AssertionError("convert_hico: the eval pipeline's labels")
+    log(f"convert_hico (a subprocess, {wall:.1f} s): {RAW_HICO_IMAGES} "
+        f"train and {RAW_HICO_IMAGES} test images of 600 classes, multi-hot "
+        "and known labels as the .mat, frame sizes; the test split read "
+        "back through the eval pipeline on the card")
+    return {"records": RAW_HICO_IMAGES * 2, "convert_s": wall}
+
+
+def convert_hmdb_raw(d, datas):
+    """``convert_hmdb`` where OpenCV is installed: MJPG videos of fixture
+    frames, converted, read back through the eval pipeline on the card,
+    each frame's card decode within the decode gate of OpenCV's.  Where
+    it is not, the converter fails as the JAX package's does."""
+    cv2_installed = importlib.util.find_spec("cv2") is not None
+    log(f"cv2_installed {cv2_installed}")
+    root = os.path.join(d, "hmdb_videos")
+    splits = os.path.join(d, "hmdb_splits")
+    out = os.path.join(d, "hmdb_records")
+    os.makedirs(splits)
+    with open(os.path.join(splits, "run_test_split1.txt"), "w") as f:
+        f.write("v0.avi 1\nv1.avi 2\n")
+    with open(os.path.join(splits, "walk_test_split1.txt"), "w") as f:
+        f.write("v2.avi 1\nv3.avi 0\n")
+    args = ["--videos_dir", root, "--splits_dir", splits, "--out_dir", out,
+            "--frames_per_video", "4", "--shards", str(RAW_SHARDS)]
+    if not cv2_installed:
+        proc = run_converter("convert_hmdb", args)
+        if proc.returncode == 0 or \
+                "No module named 'cv2'" not in proc.stderr:
+            raise AssertionError(f"convert_hmdb without OpenCV: "
+                                 f"{proc.returncode} {proc.stderr[-2000:]}")
+        log("convert_hmdb without OpenCV: fails with the JAX package's "
+            "ModuleNotFoundError (No module named 'cv2')")
+        return {"cv2_installed": False}
+    import cv2
+
+    frames = [cv2.resize(cv2.imdecode(np.frombuffer(x, np.uint8),
+                                      cv2.IMREAD_COLOR), (320, 240))
+              for x in datas]
+    for v, cls in enumerate(("run", "run", "walk", "walk")):
+        os.makedirs(os.path.join(root, cls), exist_ok=True)
+        w = cv2.VideoWriter(os.path.join(root, cls, f"v{v}.avi"),
+                            cv2.VideoWriter_fourcc(*"MJPG"), 10, (320, 240))
+        for i in range(10):
+            w.write(frames[(v + i) % len(frames)])
+        w.release()
+    t0 = time.perf_counter()
+    proc = run_converter("convert_hmdb", args)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"convert_hmdb: {proc.stderr[-3000:]}")
+    spec = train.get_dataset("hmdb51")
+    gaps = []
+    for split, want in (("train", [(0, 0), (1, 1)]), ("test", [(0, 0)])):
+        recs = shard_records(out, split)
+        batches = list(grain_pipeline.make_eval_dataset(
+            os.path.join(out, f"{split}-*.tfrecord"), spec, batch_size=16,
+            image_size=224, device="cuda"))
+        mask = np.concatenate([host(b["mask"]) for b in batches])
+        ids = np.concatenate([host(b["video_id"]) for b in batches])[mask > 0]
+        labels = np.concatenate([host(b["label"]) for b in batches])[mask > 0]
+        got = sorted(set(zip(ids.tolist(), labels.tolist())))
+        if len(recs) != 4 * len(want) or got != want or \
+                sorted(ids.tolist()) != sorted([v for v, _ in want] * 4):
+            raise AssertionError(f"convert_hmdb {split}: {len(recs)} records,"
+                                 f" videos/labels {got}")
+        for raw in recs:
+            data = records.decode_example(raw)["image/encoded"][0]
+            card = jpeg.decode([data], "cuda")[0].cpu().numpy()
+            opencv = cv2.cvtColor(cv2.imdecode(
+                np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR),
+                cv2.COLOR_BGR2RGB)
+            gaps.append(float(np.abs(card.astype(np.int16) - opencv).mean()))
+    if max(gaps) > DECODE_MEAN_LEVELS:
+        raise AssertionError(f"convert_hmdb frames: decode gaps {gaps}")
+    log(f"convert_hmdb (a subprocess, {wall:.1f} s): 4 videos of 10 MJPG "
+        "frames, 4 frames each -> 8 train and 4 test records (the unused "
+        "video skipped), read back through the eval pipeline on the card; "
+        f"card decode vs OpenCV mean |d| <= {max(gaps):.3f} levels")
+    return {"cv2_installed": True, "convert_s": wall,
+            "max_decode_gap": max(gaps)}
+
+
+@contextlib.contextmanager
+def sigterm_as_step_starts(step_no, digests):
+    """``train.train``'s steps digest their batches into ``digests``; a
+    real SIGTERM is sent once, as step ``step_no`` starts (the step
+    finishes, is saved and the run returns)."""
+    make = train.make_train_step
+    fired = []
+
+    def make_stopping(spec, cfg, mesh=None):
+        step = make(spec, cfg, mesh)
+
+        def step_fn(state, batch):
+            if state.step == step_no - 1 and not fired:
+                fired.append(step_no)
+                os.kill(os.getpid(), signal.SIGTERM)
+            digests.append(batch_digest(batch))
+            return step(state, batch)
+        return step_fn
+
+    train.make_train_step = make_stopping
+    try:
+        yield
+    finally:
+        train.make_train_step = make
+
+
+def raw_train_and_eval(paths, run_dir, n_val):
+    """``train_cli --config mpii_rank1_224 --set remat_units=true`` from
+    the converted records, saving every 2 steps, with a real SIGTERM
+    right after step 2's save; resumed to ``RAW_STEPS``; against
+    ``train.train`` of the same config straight (losses and batches bit
+    for bit, cuDNN deterministic); then ``eval_cli`` of the converted val
+    split.  Each CLI counted."""
+    cfg = config_lib.get_config(
+        "mpii_rank1_224", train_pattern=paths["train"], log_every=1,
+        checkpoint_every=1000, remat_units=True)
+    args = ["--config", "mpii_rank1_224", "--set", "remat_units=true",
+            "--train_pattern", paths["train"], "--workdir", run_dir,
+            "--num_steps", str(RAW_STEPS), "--set", "checkpoint_every=2",
+            "--set", "log_every=1"]
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        straight_d, cut_d = [], []
+        with digesting(straight_d):
+            state, hist = train.train(cfg, num_steps=RAW_STEPS,
+                                      device="cuda")
+        del state
+        mgr = checkpoint.make_manager(os.path.join(run_dir, "checkpoints"))
+        t0 = time.perf_counter()
+        with sigterm_as_step_starts(RAW_STOP, cut_d):
+            (first, kept), launches = counted(lambda: (
+                train_cli.main(args).step, mgr.all_steps()))
+            (second, launches2) = counted(lambda: train_cli.main(args).step)
+        out["train_cli_s"] = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = False
+    launches = {k: launches[k] + launches2[k] for k in launches}
+    want = [np.float32(h["loss/total"]) for h in hist]
+    got = [np.float32(v) for _, v in read_scalars(run_dir)["loss/total"]]
+    if first != RAW_STOP or kept != [2, RAW_STOP] or second != RAW_STEPS \
+            or mgr.all_steps() != [2, RAW_STOP, RAW_STEPS] or \
+            got != want or cut_d != straight_d:
+        raise AssertionError(
+            f"train_cli from converted records: stopped at {first} with "
+            f"steps {kept}, resumed to {second} with {mgr.all_steps()}; "
+            f"losses {got} vs {want}; batches equal {cut_d == straight_d}")
+    expect_launches("train_cli from converted records", launches, RAW_STEPS,
+                    backward=RAW_STEPS)
+    if launches["ycc_to_rgb"] < 1:
+        raise AssertionError(f"train_cli decoded no colour image: {launches}")
+    out["train_launches"] = launches
+    out["losses"] = [float(v) for v in want]
+    t0 = time.perf_counter()
+    printed, launches = counted(lambda: eval_cli.main([
+        "--config", "mpii_rank1_224", "--workdir", run_dir,
+        "--eval_pattern", paths["val"]]))
+    out["eval_cli_s"] = time.perf_counter() - t0
+    batches = -(-n_val // config_lib.get_config("mpii_rank1_224")
+                .eval_batch_size)
+    expect_launches(f"eval_cli: {batches} batches", launches, batches)
+    line = printed[-1]
+    if line["step"] != RAW_STEPS or line["num_examples"] != n_val:
+        raise AssertionError(f"eval_cli printed {line}")
+    out["eval_launches"] = launches
+    out["eval_cli"] = line
+    log(f"train_cli --set remat_units=true from the converted records: "
+        f"SIGTERM as step {RAW_STOP} started (step 2's save in flight), "
+        f"stopped at {first} with steps {kept}, resumed to {second}: losses "
+        "and batch digests equal train.train's straight run bit for bit; "
+        + ", ".join(f"{v:.4f}" for v in out["losses"])
+        + f"; {out['train_cli_s']:.1f} s; launches {out['train_launches']}")
+    log(f"eval_cli of the converted val split: {line}; launches "
+        f"{launches}")
+    return out
+
+
+def remat_against_plain(name, rounds, compare):
+    """``name``'s train step with and without ``remat_units`` at full
+    width from seeded weights and batch.  With ``compare``: the remat
+    step against the plain one from the same state (cuDNN deterministic),
+    within the gap of two plain steps measured beside it, parameters and
+    running statistics.  Then, with cuDNN's defaults, one state stepped
+    in turns with remat off and on: median ms and
+    ``torch.cuda.max_memory_allocated`` of each."""
+    cfg = config_lib.get_config(name)
+    spec = train.get_dataset(cfg.dataset)
+    variables = precision.seeded_variables(cfg, 11)
+    batch = train.batch_to_device(precision.synthetic_batch(
+        np.random.default_rng(112), cfg, spec), "cuda")
+    out = {"config": name}
+    if compare:
+        torch.backends.cudnn.deterministic = True
+        try:
+            runs = []
+            for remat in (False, False, True):
+                c = dataclasses.replace(cfg, remat_units=remat)
+                state, _ = train.create_state(c, device="cuda",
+                                              variables=variables)
+                _, m = train.make_train_step(spec, c)(state, batch)
+                sd = state.model.state_dict()
+                stats = torch.cat([v.reshape(-1) for k, v in sd.items()
+                                   if k.endswith(("running_mean",
+                                                  "running_var"))])
+                runs.append((_flat_params(state), stats,
+                             float(m["loss/total"])))
+                del state
+        finally:
+            torch.backends.cudnn.deterministic = False
+        (a, sa, la), (b, sb, lb), (r, sr, lr) = runs
+        out.update(
+            gap_params=float((a - b).abs().max()),
+            gap_stats=float((sa - sb).abs().max()), gap_loss=abs(la - lb),
+            remat_params=float((r - a).abs().max()),
+            remat_stats=float((sr - sa).abs().max()),
+            remat_loss=abs(lr - la))
+        if out["remat_params"] > out["gap_params"] or \
+                out["remat_stats"] > out["gap_stats"] or \
+                out["remat_loss"] > out["gap_loss"]:
+            raise AssertionError(f"{name}: remat step vs plain {out}")
+    state, _ = train.create_state(cfg, device="cuda", variables=variables)
+    step = train.make_train_step(spec, cfg)
+    times = {False: [], True: []}
+    memory = {False: 0, True: 0}
+    for r in range(rounds + 1):
+        for remat in ((False, True) if r % 2 else (True, False)):
+            state.model.resnet.remat_units = remat
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            if r:                              # round 0 warms both up
+                times[remat].append(time.perf_counter() - t0)
+                memory[remat] = max(memory[remat],
+                                    torch.cuda.max_memory_allocated())
+    del state
+    torch.cuda.empty_cache()
+    for remat, key in ((False, "plain"), (True, "remat")):
+        out[f"{key}_ms"] = float(np.median(times[remat])) * 1e3
+        out[f"{key}_max_allocated"] = memory[remat]
+    log(f"{name} (batch {cfg.batch_size}, {cfg.image_size} px"
+        f"{', bf16' if cfg.bf16_backbone else ''}) step with remat_units: "
+        f"{out['remat_ms']:.1f} ms and {out['remat_max_allocated'] / 2**30:.2f}"
+        f" GiB max allocated, without: {out['plain_ms']:.1f} ms and "
+        f"{out['plain_max_allocated'] / 2**30:.2f} GiB (medians of "
+        f"{rounds}, in turns)"
+        + (f"; remat vs plain from one state (cuDNN deterministic): "
+           f"params {out['remat_params']:.3e}, running statistics "
+           f"{out['remat_stats']:.3e}, loss {out['remat_loss']:.3e}; the gap "
+           f"of two plain steps {out['gap_params']:.3e} / "
+           f"{out['gap_stats']:.3e} / {out['gap_loss']:.3e}"
+           if compare else ""))
+    return out
+
+
+def async_saves(workdir, card):
+    """The 347 MB state of config #1 (after a step: momentum) saved by the
+    asynchronous manager: what blocks the step thread (the call, then
+    the card's copy into pinned memory) against the whole write; steps
+    taken while a write is in flight against steps without one; the step
+    restored after ``wait_until_finished`` bitwise equal to the state at
+    the save, though the live state stepped on."""
+    cfg = config_lib.get_config("mpii_rank1_224")
+    spec = train.get_dataset(cfg.dataset)
+    state, _ = train.create_state(cfg, device="cuda",
+                                  variables=precision.seeded_variables(cfg, 12))
+    step = train.make_train_step(spec, cfg)
+    batch = train.batch_to_device(precision.synthetic_batch(
+        np.random.default_rng(113), cfg, spec), "cuda")
+    step(state, batch)
+    mgr = checkpoint.make_manager(os.path.join(workdir, "async"),
+                                  max_to_keep=2)
+    reps = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save(mgr, state)
+        t_call = time.perf_counter()
+        torch.cuda.synchronize()
+        t_copy = time.perf_counter()
+        if i == 2:
+            want = {k: v.clone() for k, v in state_tensors(state)[0].items()}
+            saved_step = state.step
+            during = []
+            for _ in range(3):
+                s0 = time.perf_counter()
+                step(state, batch)
+                torch.cuda.synchronize()
+                during.append(time.perf_counter() - s0)
+        mgr.wait_until_finished()
+        t_done = time.perf_counter()
+        reps.append({"call_s": t_call - t0, "blocking_s": t_copy - t0,
+                     "whole_s": t_done - t0})
+        if i < 2:
+            step(state, batch)
+    alone = []
+    for _ in range(3):
+        s0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        alone.append(time.perf_counter() - s0)
+    fresh, _ = train.create_state(cfg, device="cuda")
+    checkpoint.restore(mgr, fresh, step=saved_step)
+    got, got_step = state_tensors(fresh)
+    if got_step != saved_step or got.keys() != want.keys() or not all(
+            torch.equal(got[k], want[k]) for k in want):
+        raise AssertionError("async save: the restored step differs from "
+                             "the state at its save")
+    nbytes = os.path.getsize(mgr.step_dir(saved_step)
+                             / checkpoint.CHECKPOINT_FILE)
+    out = {"bytes": nbytes, "saves": reps,
+           "step_ms_during_write": float(np.median(during)) * 1e3,
+           "step_ms_alone": float(np.median(alone)) * 1e3, "card": card}
+    del state, fresh
+    log(f"async saves of {nbytes} bytes ({card}): the step thread blocked "
+        + ", ".join(f"{r['blocking_s'] * 1e3:.1f} ms (call "
+                    f"{r['call_s'] * 1e3:.1f})" for r in reps)
+        + " against whole writes of "
+        + ", ".join(f"{r['whole_s']:.3f} s" for r in reps)
+        + " (the first save allocates the pinned buffers); steps while the "
+        f"write runs {out['step_ms_during_write']:.1f} ms, without "
+        f"{out['step_ms_alone']:.1f} ms; restored after the wait bitwise "
+        "equal to the state at the save")
+    return out
+
+
+def replica_graphs(card):
+    """R2 on one card: two replicas on ``cuda:0`` through CUDA graphs.
+    ``mpii_rank1_224`` float (TF32 off): probabilities against the eager
+    one-device path within ``REPLICA_PROB_ATOL``, launches by the replay
+    rule, a reload captured again; int8 with per-example scales and an
+    ``hmdb51_clip8`` clip against eager dispatch of the same split; bucket
+    32 on one device eager against the two replicas, in turns."""
+    devices = ["cuda:0", "cuda:0"]
+    out = {"card": card}
+    cfg = config_lib.get_config("mpii_rank1_224")
+    variables = precision.seeded_variables(cfg, 0)
+    images = np.random.default_rng(114).integers(
+        0, 256, (40, cfg.image_size, cfg.image_size, 3), np.uint8)
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        one = serving.Predictor(cfg, *variables, buckets=(1, 8, 32))
+        two = serving.Predictor(cfg, *variables, buckets=(1, 8, 32),
+                                data_parallel=True, devices=devices)
+        if two._replica_graphs != {}:
+            raise AssertionError("replicas on a card dispatch eagerly")
+        t0 = time.perf_counter()
+        two.warmup()
+        out["capture_s"] = time.perf_counter() - t0
+        out["graphs"] = len(two._replica_graphs)
+        want = one.predict_arrays(images)
+        got, launches = counted(lambda: two.predict_arrays(images))
+        out["max_abs_dprob"] = float(np.abs(got - want).max())
+        # 40 images: buckets 32 and 8, each split over the two replicas
+        expect_launches("two graphed replicas, 40 images", launches, 4,
+                        ycc=0)
+        out["launches"] = launches
+        other = precision.seeded_variables(cfg, 1)
+        one.reload(*other)
+        two.reload(*other)
+        out["reload_max_abs_dprob"] = float(np.abs(
+            two.predict_arrays(images) - one.predict_arrays(images)).max())
+        if max(out["max_abs_dprob"], out["reload_max_abs_dprob"]) > \
+                REPLICA_PROB_ATOL or out["graphs"] != 6:
+            raise AssertionError(f"graphed replicas: {out}")
+        # timed with serving's TF32 convs (captured again under them)
+        torch.backends.cudnn.allow_tf32 = True
+        two.reload(*other)
+        times = ([], [])
+        batch = images[:32]
+        for p in (one, two):
+            p.predict_arrays(batch)
+        for _ in range(4):
+            for i in (0, 1, 1, 0):
+                t0 = time.perf_counter()
+                (one, two)[i].predict_arrays(batch)
+                times[i].append(time.perf_counter() - t0)
+        out["one_device_ms"] = float(np.median(times[0])) * 1e3
+        out["replicas_ms"] = float(np.median(times[1])) * 1e3
+        torch.backends.cudnn.allow_tf32 = False
+        del one, two
+        # int8 (per-example scales) and a clip: graphs vs eager dispatch
+        for what, c, kw in (("int8", cfg, {"int8": True}),
+                            ("clip", config_lib.get_config("hmdb51_clip8"),
+                             {})):
+            v = precision.seeded_variables(c, 2)
+            graphed, eager = (serving.Predictor(
+                c, *v, buckets=(8,), data_parallel=True, devices=devices,
+                **kw) for _ in range(2))
+            eager._replica_graphs = None
+            if what == "int8":
+                x = images[:8]
+                a, b = graphed.predict_arrays(x), eager.predict_arrays(x)
+            else:
+                frames = np.random.default_rng(115).integers(
+                    0, 256, (1, c.clip_frames, c.image_size, c.image_size, 3),
+                    np.uint8)
+                graphed._fwd(graphed._weights, frames)      # captures
+                a, n2 = counted(lambda: graphed._probs(graphed._fwd(
+                    graphed._weights, frames)))
+                expect_launches("a graphed clip", n2, 1, ycc=0)
+                b = eager._probs(eager._fwd(eager._weights, frames))
+            out[f"{what}_max_abs_dprob"] = float(np.abs(a - b).max())
+            if out[f"{what}_max_abs_dprob"] > REPLICA_PROB_ATOL:
+                raise AssertionError(f"graphed {what} vs eager: {out}")
+            del graphed, eager
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.cuda.empty_cache()
+    log(f"data-parallel serving through CUDA graphs, two replicas on one "
+        f"card ({card}, TF32 off): {out['graphs']} graphs captured in "
+        f"{out['capture_s']:.1f} s; probabilities {out['max_abs_dprob']:.3e} "
+        f"from the eager one-device path (after a reload "
+        f"{out['reload_max_abs_dprob']:.3e}); int8 {out['int8_max_abs_dprob']:.3e}"
+        f" and a clip {out['clip_max_abs_dprob']:.3e} from eager dispatch; "
+        f"launches {out['launches']} (each replay adds its capture's); "
+        f"bucket 32 (TF32 convs): {out['replicas_ms']:.1f} ms a call vs "
+        f"{out['one_device_ms']:.1f} ms eager on one device (median of 8, "
+        "in turns)")
+    return out
+
+
+def phase_raw(card):
+    """From raw data to a trained, checkpointed, evaluated model; see the
+    module docstring, phase 11."""
+    t_phase = time.monotonic()
+    _, datas, _, _ = load_fixtures()
+    out = {"card": card}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_raw_") as d:
+        mpii = convert_mpii_raw(d, datas)
+        out["convert"] = {"mpii": {k: v for k, v in mpii.items()
+                                   if k not in ("train", "val")},
+                          "hico": convert_hico_raw(d, datas),
+                          "hmdb": convert_hmdb_raw(d, datas)}
+        out["clis"] = raw_train_and_eval(mpii, os.path.join(d, "run"),
+                                         mpii["records"]["val"])
+        out["remat1"] = remat_against_plain("mpii_rank1_224", REMAT_ROUNDS,
+                                            compare=True)
+        out["remat5"] = remat_against_plain(MESH_CONFIG, REMAT_ROUNDS,
+                                            compare=False)
+        out["async_save"] = async_saves(d, card)
+    out["replicas"] = replica_graphs(card)
+    out["phase_s"] = time.monotonic() - t_phase
+    log(f"phase 11 took {out['phase_s']:.1f} s (workdir removed)")
+    return out
+
+
 def cards_worker(workdir):
     """One rank a card over NCCL, world = the cards: DP vs one process,
     ZeRO-1 vs DP and the ``(n/2, 2)`` data x model step of ``hico``
@@ -4341,9 +5055,9 @@ def cards_worker(workdir):
 
 def cards_serving(n, card):
     """Data-parallel serving over ``n`` cards in this process, one replica
-    a card: ``mpii_rank1_224`` (float32, TF32 off) against one card's
-    probabilities, and config #5 at bucket 32 against one card, timed in
-    turns; counted."""
+    a card through CUDA graphs: ``mpii_rank1_224`` (float32, TF32 off)
+    against one card's probabilities, and config #5 at bucket 32 against
+    one card, timed in turns and no slower; counted."""
     torch.backends.cudnn.allow_tf32 = False
     try:
         cfg = config_lib.get_config("mpii_rank1_224")
@@ -4351,6 +5065,7 @@ def cards_serving(n, card):
         one = serving.Predictor(cfg, *variables, buckets=(1, 8, 32))
         many = serving.Predictor(cfg, *variables, buckets=(1, 8, 32),
                                  data_parallel=True)
+        many.warmup()               # captures each replica's graphs
         images = np.random.default_rng(60).integers(
             0, 256, (40, cfg.image_size, cfg.image_size, 3), np.uint8)
         want = one.predict_arrays(images)
@@ -4379,8 +5094,14 @@ def cards_serving(n, card):
             preds[i].predict_arrays(batch)
             times[i].append(time.perf_counter() - t0)
     out = {"replicas": n, "max_abs_dprob": err, "launches": launches,
+           "graphs": len(preds[1]._replica_graphs),
            "one_card_ms": float(np.median(times[0])) * 1e3,
            "replicas_ms": float(np.median(times[1])) * 1e3}
+    if out["replicas_ms"] > out["one_card_ms"]:
+        raise AssertionError(
+            f"data-parallel serving over {n} cards: {MESH_CONFIG} at bucket "
+            f"32 {out['replicas_ms']:.1f} ms a call, slower than one card's "
+            f"{out['one_card_ms']:.1f} ms")
     log(f"data-parallel serving over {n} cards ({card}): {n} replicas, "
         f"mpii_rank1_224 probabilities {err:.3e} from one card's (TF32 "
         f"off); {MESH_CONFIG} at bucket 32: {out['replicas_ms']:.1f} ms a "
@@ -4490,6 +5211,7 @@ def main():
     exported = phase_export(card, rec_run["record_logits"]["bound"])
     meshed = phase_mesh(card)
     config5, gloo2 = meshed["config5"], meshed["gloo2"]["ranks"]
+    raw = phase_raw(card)
 
     def path_launches(name):
         """The launches of ``name`` on each main path, each counted over
@@ -4529,7 +5251,9 @@ def main():
                 "gloo2_zero1_launches": [r["zero1"]["launches"][name]
                                          for r in gloo2],
                 "gloo2_tp_launches": [r["tp"]["launches"][name]
-                                      for r in gloo2]}
+                                      for r in gloo2],
+                "raw_train_launches": raw["clis"]["train_launches"][name],
+                "raw_eval_launches": raw["clis"]["eval_launches"][name]}
 
     kernels = []
     for name in ("saliency_summary", "project_logits", "pool_backward"):
@@ -4577,6 +5301,7 @@ def main():
         k: v for k, v in served.items() if k != "http"}}, default=str))
     log(json.dumps({"export_run": exported}, default=str))
     log(json.dumps({"mesh_run": meshed}, default=str))
+    log(json.dumps({"raw_run": raw}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

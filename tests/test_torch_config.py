@@ -4,6 +4,7 @@ stay equal to the originals: every preset field for field, every dataset
 descriptor, the feature sizes, and the VGG mean subtraction."""
 
 import dataclasses
+import importlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -42,6 +43,31 @@ def test_get_config_overrides_and_errors():
         config.get_config("nope")
     assert (config.parse_overrides(["rank=2", "dataset=hico"])
             == jax_config.parse_overrides(["rank=2", "dataset=hico"]))
+
+
+@pytest.mark.parametrize("cli", ["train_cli", "eval_cli", "serve_cli",
+                                 "export_cli", "visualize_cli"])
+def test_set_true_and_false_are_booleans(cli):
+    """``--set name=false`` (any case) is ``False`` on every CLI, where
+    the JAX package keeps the truthy string ``"false"``; other values
+    parse as before."""
+    mod = importlib.import_module(f"attentionalpoolingaction_torch.{cli}")
+    args = mod.parse_args(
+        ["--workdir", "w", "--out_dir", "o", "--images", "a.jpg"][
+            :{"export_cli": 4, "visualize_cli": 6}.get(cli, 0)]
+        + ["--set", "freeze_bn=false", "--set", "remat_units=TRUE",
+           "--set", "eval_int8=False", "--set", "rank=2",
+           "--set", "dataset=hico", "--set", "mesh_shape=(2,)"])
+    got = config.parse_overrides(args.set)
+    assert got == {"freeze_bn": False, "remat_units": True,
+                   "eval_int8": False, "rank": 2, "dataset": "hico",
+                   "mesh_shape": (2,)}
+    assert all(type(got[k]) is bool
+               for k in ("freeze_bn", "remat_units", "eval_int8"))
+    cfg = config.get_config("mpii_rank1_224", **got)
+    assert cfg.freeze_bn is False and cfg.remat_units is True
+    assert jax_config.parse_overrides(["freeze_bn=false"]) == {
+        "freeze_bn": "false"}
 
 
 @pytest.mark.parametrize("name", sorted(jax_datasets.DATASETS))

@@ -2,11 +2,15 @@
 Orbax, Grain, absl, CLU, TensorBoard, ArrayRecord or PIL (the card's
 machine has none of them): a static scan of every module of
 attentionalpoolingaction_torch/ and of chip_smoke.py.  Static, because an
-interpreter may have JAX loaded already.  OpenCV is imported in three
+interpreter may have JAX loaded already.  OpenCV is imported in five
 places only: ``data/jpeg.py``'s CPU decoder, the default JPEG encoder
-of ``data/records.py``'s ``write_synthetic_dataset`` and serving's
-video-container decoder (``serving.decode_video_frames``).  The modules of the
-card's path import with cv2, tensorflow and grain unavailable."""
+of ``data/records.py`` (``write_synthetic_dataset``, and HMDB51's
+converter), serving's video-container decoder
+(``serving.decode_video_frames``) and the HMDB51 converter's frame reader
+(``data/convert_hmdb.extract_frames``); and ``chip_smoke.py`` writes its
+test videos with OpenCV where it is installed (``convert_hmdb_raw``).
+The modules of the card's path, and the dataset converters, import with
+cv2, tensorflow and grain unavailable."""
 
 import ast
 import pathlib
@@ -24,7 +28,10 @@ CV2_ALLOWED = {("attentionalpoolingaction_torch/data/jpeg.py", "_decode_cpu"),
                ("attentionalpoolingaction_torch/data/records.py",
                 "_cv2_encode_jpeg"),
                ("attentionalpoolingaction_torch/serving.py",
-                "decode_video_frames")}
+                "decode_video_frames"),
+               ("attentionalpoolingaction_torch/data/convert_hmdb.py",
+                "extract_frames"),
+               ("chip_smoke.py", "convert_hmdb_raw")}
 FILES = sorted((ROOT / "attentionalpoolingaction_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -88,7 +95,8 @@ def test_scan_sees_every_module():
                 "data/pipeline", "utils/metrics_writer", "utils/profiling",
                 "models/inference", "data/png", "serve_cli", "predict_cli",
                 "export", "export_cli", "utils/visualize", "visualize_cli",
-                "convert_cli"):
+                "convert_cli", "data/convert_mpii", "data/convert_hico",
+                "data/convert_hmdb"):
         assert f"attentionalpoolingaction_torch/{mod}.py" in names
     assert set(cv2_importers(
         ROOT / "attentionalpoolingaction_torch/data/jpeg.py")) == {
@@ -131,6 +139,9 @@ def test_card_path_imports_without_host_libraries():
         "import attentionalpoolingaction_torch.utils.visualize\n"
         "import attentionalpoolingaction_torch.visualize_cli\n"
         "import attentionalpoolingaction_torch.convert_cli\n"
+        "import attentionalpoolingaction_torch.data.convert_mpii\n"
+        "import attentionalpoolingaction_torch.data.convert_hico\n"
+        "import attentionalpoolingaction_torch.data.convert_hmdb\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)

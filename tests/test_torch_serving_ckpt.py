@@ -146,3 +146,21 @@ def test_follower_of_the_best_slot_with_ema(run):
     np.testing.assert_array_equal(pred.predict_arrays(run["images"]),
                                   reference_probs(run, 1, use_ema=True))
     assert not follower.poll_once()
+
+
+def test_data_parallel_replicas_follow_a_new_step(run):
+    """Two replicas on the CPU (eager dispatch: CUDA graphs are for
+    replicas on cards) split a batch as one device computes it, and a
+    follower's hot swap serves the new step on every replica."""
+    cfg, mgr = run["cfg"], run["mgr"]
+    two = serving.load_predictor(cfg, step=1, buckets=(1, 4), device="cpu",
+                                 data_parallel=True, devices=["cpu", "cpu"])
+    assert two._replica_graphs is None and len(two._weights) == 2
+    np.testing.assert_allclose(two.predict_arrays(run["images"]),
+                               reference_probs(run, 1), rtol=1e-5,
+                               atol=1e-7)
+    assert serving.CheckpointFollower(two, mgr).poll_once()
+    assert two.step == 2 and len(two._weights) == 2
+    np.testing.assert_allclose(two.predict_arrays(run["images"]),
+                               reference_probs(run, 2), rtol=1e-5,
+                               atol=1e-7)

@@ -370,17 +370,14 @@ def test_train_loop_logs_and_calls_hooks():
     (dict(mesh_shape=(2,)), "step"), (dict(zero1=True), "step"),
     (dict(remat_units=True), "step"), (dict(mesh_shape=(8,)), "train")])
 def test_unported_options_raise(kw, where):
-    """``remat_units`` raises.  A mesh and ZeRO-1 are ported
-    (tests/test_torch_mesh.py); in one process (no process group) the
-    step and ``train`` run without a mesh where JAX's ``train`` builds
-    none on one device: BASELINE config #5's ``mesh_shape=(8,)`` trains
-    alone, as one device's step."""
+    """None of these options raises any more.  ``remat_units`` is ported
+    (tests/test_torch_remat.py): its step runs.  A mesh and ZeRO-1 are
+    ported (tests/test_torch_mesh.py); in one process (no process group)
+    the step and ``train`` run without a mesh where JAX's ``train``
+    builds none on one device: BASELINE config #5's ``mesh_shape=(8,)``
+    trains alone, as one device's step."""
     cfg = dataclasses.replace(small_cfg(), **kw)
     spec = train.get_dataset("mpii")
-    if cfg.remat_units:
-        with pytest.raises(NotImplementedError):
-            train.make_train_step(spec, cfg)
-        return
     rng = np.random.default_rng(3)
     batch = {"image": rng.integers(0, 256, (2, 64, 64, 3), np.uint8),
              "label": rng.integers(0, 393, 2).astype(np.int32)}
