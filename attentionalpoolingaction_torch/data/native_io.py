@@ -11,8 +11,10 @@ record file, byte for byte the JAX package's format, so either package
 reads the other's.
 
 The library is built at first use with the host's C++ compiler into the
-package's ``_build/`` (``ops/_build.py``).  ArrayRecord files are not
-supported: the card's machine has no ``array_record``.
+package's ``_build/`` (``ops/_build.py``).  ``make_source`` opens
+ArrayRecord files (``*.array_record``, ``*.arrayrecord``) with the port's
+own codec (``data/array_record.py``), as the JAX package opens them with
+Grain's ``ArrayRecordDataSource``.
 """
 
 from __future__ import annotations
@@ -22,10 +24,12 @@ import ctypes
 import glob
 import os
 
+from attentionalpoolingaction_torch.data.array_record import ArrayRecordFile
 from attentionalpoolingaction_torch.ops import _build
 
-__all__ = ["IndexedTFRecordFile", "TFRecordDataSource", "build_index",
-           "make_source", "masked_crc32c"]
+__all__ = ["ArrayRecordDataSource", "IndexedTFRecordFile",
+           "TFRecordDataSource", "build_index", "make_source",
+           "masked_crc32c"]
 
 _ARRAY_RECORD = (".array_record", ".arrayrecord")
 
@@ -149,33 +153,30 @@ def _paths(pattern) -> list[str]:
 
 def make_source(pattern, *, verify_crc: bool = False):
     """Random-access source for a file pattern (a glob, or a list of
-    paths): indexed TFRecords.  ArrayRecord files raise
-    ``NotImplementedError``."""
+    paths), by format: ArrayRecord files (``*.array_record``,
+    ``*.arrayrecord``) give an :class:`ArrayRecordDataSource`, anything
+    else indexed TFRecords.  Both give serialized ``tf.train.Example``
+    bytes; a mix of the two raises ``ValueError``.  ``verify_crc`` checks
+    each record's checksum (ArrayRecord: each chunk's data hash)."""
     paths = _paths(pattern)
     if any(p.endswith(_ARRAY_RECORD) for p in paths):
-        raise NotImplementedError(
-            f"ArrayRecord sources are not ported ({paths}): the port reads "
-            "indexed TFRecords")
+        if not all(p.endswith(_ARRAY_RECORD) for p in paths):
+            raise ValueError(f"mixed record formats in {paths}")
+        return ArrayRecordDataSource(paths, verify_hash=verify_crc)
     return TFRecordDataSource(paths, verify_crc=verify_crc)
 
 
-class TFRecordDataSource:
-    """Random-access source over sharded TFRecord files: a global index
-    into the concatenation of per-file records."""
+class _Concatenation:
+    """Global indexing into the concatenation of per-file records."""
 
-    def __init__(self, paths, *, verify_crc: bool = False):
-        self._files = [IndexedTFRecordFile(p, verify_crc=verify_crc)
-                       for p in _paths(paths)]
+    def __init__(self, files):
+        self._files = files
         self._offsets = []
         total = 0
         for f in self._files:
             self._offsets.append(total)
             total += len(f)
         self._total = total
-
-    @property
-    def files(self):
-        return list(self._files)
 
     def __len__(self) -> int:
         return self._total
@@ -187,3 +188,26 @@ class TFRecordDataSource:
             raise IndexError(i)
         fi = bisect.bisect_right(self._offsets, i) - 1
         return self._files[fi][i - self._offsets[fi]]
+
+
+class TFRecordDataSource(_Concatenation):
+    """Random-access source over sharded TFRecord files."""
+
+    def __init__(self, paths, *, verify_crc: bool = False):
+        super().__init__([IndexedTFRecordFile(p, verify_crc=verify_crc)
+                          for p in _paths(paths)])
+
+    @property
+    def files(self):
+        return list(self._files)
+
+
+class ArrayRecordDataSource(_Concatenation):
+    """Random-access source over sharded ArrayRecord files.  It has no
+    ``files``: the video index scans it directly
+    (``grain_pipeline.build_video_index``), as the JAX package scans
+    Grain's source."""
+
+    def __init__(self, paths, *, verify_hash: bool = False):
+        super().__init__([ArrayRecordFile(p, verify_hash=verify_hash)
+                          for p in _paths(paths)])

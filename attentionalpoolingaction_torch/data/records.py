@@ -21,9 +21,9 @@ checksums from the native library (``native_io.masked_crc32c``);
 ``_crc32c`` is the JAX package's pure-Python one, kept as the plain
 version the tests hold the native one against.
 
-Not ported: ``feature_description`` (a ``tf.io`` parse spec; the port
-parses with :func:`parse_example`) and ``write_array_record``, which
-raises (no ``array_record`` on the card's machine).
+``write_array_record`` writes ArrayRecord files with the port's own codec
+(``data/array_record.py``).  Not ported: ``feature_description`` (a
+``tf.io`` parse spec; the port parses with :func:`parse_example`).
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from typing import Callable
 
 import numpy as np
 
-from attentionalpoolingaction_torch.data import native_io
+from attentionalpoolingaction_torch.data import array_record, native_io
 from attentionalpoolingaction_torch.data.datasets import DatasetSpec
 from attentionalpoolingaction_torch.tf_checkpoint import (
     _fields,
@@ -124,9 +124,11 @@ class ShardedTFRecordWriter:
 
 
 def write_array_record(path, serialized_examples, *, group_size: int = 1):
-    raise NotImplementedError(
-        "ArrayRecord is not ported: the card's machine has no "
-        "array_record; write TFRecords (write_tfrecord)")
+    """Write serialized example protos to an ArrayRecord file (its footer
+    is the index: no sidecar).  ``group_size=1`` keeps every record
+    seekable alone, the right trade for the pipeline's global shuffle."""
+    array_record.write_array_record_file(path, serialized_examples,
+                                         group_size=group_size)
 
 
 def read_tfrecord(path):

@@ -8,8 +8,8 @@ absl and the same flags by name.
         [--follow --poll_secs 60] [--device cpu]
 
 It restores a step of ``<workdir>/checkpoints`` (the latest by default,
-``best`` for the keep-best slot), evaluates the records of
-``--eval_pattern`` on ``--device`` (default ``cuda``) and prints the
+``best`` for the keep-best slot), evaluates the records (TFRecord or
+ArrayRecord) of ``--eval_pattern`` on ``--device`` (default ``cuda``) and prints the
 results as one JSON line, with the JAX CLI's keys (the metrics and
 ``step``).  ``--follow`` evaluates each new step as it appears; ``--tb``
 (on by default; ``--notb``) writes the ``eval/*`` scalars as TensorBoard
@@ -43,7 +43,8 @@ log = logging.getLogger(__name__)
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--config", default="mpii_rank1_224", help="preset name")
-    p.add_argument("--eval_pattern", help="eval TFRecord glob")
+    p.add_argument("--eval_pattern", help="eval record glob: TFRecord, "
+                   "or ArrayRecord (*.array_record)")
     p.add_argument("--workdir", help="run dir containing checkpoints/")
     p.add_argument("--step", help="checkpoint step: an int, or 'best' for "
                    "the keep-best slot (default: latest)")

@@ -5,7 +5,8 @@ which is loaded with ``ctypes``: ``csrc/attn_pool.cu`` (the attentional
 pooling kernels), ``csrc/attn_pool_backward.cu`` (the head's backward; the
 two share ``csrc/attn_pool_common.cuh``) and ``csrc/jpeg_decode.cu`` (the
 nvJPEG binding and the colour kernel) with ``nvcc`` for ``sm_90a``,
-``csrc/tfrecord_index.cc`` (the indexed record reader) with the host's C++
+``csrc/tfrecord_index.cc`` (the indexed record reader) and
+``csrc/array_record.cc`` (the ArrayRecord container) with the host's C++
 compiler.  A library lands in ``attentionalpoolingaction_torch/_build/``
 under a name that carries a hash of its source, the headers it includes
 and its flags, so an edited source is never served by a stale
@@ -54,8 +55,9 @@ def cxx() -> str:
         found = name and shutil.which(name)
         if found:
             return found
-    raise RuntimeError("no C++ compiler found (set CXX): "
-                       "csrc/tfrecord_index.cc is built at first use")
+    raise RuntimeError("no C++ compiler found (set CXX): csrc/"
+                       "tfrecord_index.cc and csrc/array_record.cc are "
+                       "built at first use")
 
 
 class NativeLibrary:

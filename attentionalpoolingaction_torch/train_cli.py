@@ -9,8 +9,8 @@ of absl and the same flags by name.
         [--eval_pattern=/data/mpii/val-*.tfrecord --eval_every 1000] \\
         [--device cpu]
 
-It trains on ``--device`` (default ``cuda``) from the TFRecords of
-``--train_pattern`` (JPEG decode on the device), checkpoints to
+It trains on ``--device`` (default ``cuda``) from the records of
+``--train_pattern``, TFRecord or ArrayRecord (JPEG decode on the device), checkpoints to
 ``<workdir>/checkpoints`` and resumes from there, writes the train and
 eval scalars as TensorBoard event files into the workdir, and with
 ``--eval_every`` evaluates ``--eval_pattern`` and keeps the best step in
@@ -59,8 +59,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--config", default="mpii_rank1_224",
                    help=f"preset name, one of {sorted(config_lib.PRESETS)}")
-    p.add_argument("--train_pattern", help="train TFRecord glob")
-    p.add_argument("--eval_pattern", help="eval TFRecord glob")
+    p.add_argument("--train_pattern", help="train record glob: TFRecord, "
+                   "or ArrayRecord (*.array_record)")
+    p.add_argument("--eval_pattern", help="eval record glob: TFRecord, "
+                   "or ArrayRecord (*.array_record)")
     p.add_argument("--workdir", help="checkpoint/metrics dir")
     p.add_argument("--init_checkpoint",
                    help="fine-tune init: a TF-slim checkpoint (e.g. "

@@ -213,7 +213,24 @@ Phases; any failure raises and the process exits non-zero:
    launches by the replay rule, a reload captured again, int8 with
    per-example scales and an ``hmdb51_clip8`` clip against eager
    dispatch, and bucket 32 against one device in turns.
-12. A ``kernels`` JSON line (``launches`` from phase 3's serving run for
+12. From ArrayRecord (``data/array_record.py``, ``csrc/array_record.cc``
+   built with the host compiler, zstd through ``libzstd.so.1``, whose path
+   and version are printed first).  The fixture that the JAX package's
+   writer made (``tests/fixtures_torch/jax_written.array_record``, three
+   MPII-schema examples carrying the two 1280x720 JPEGs and the gray one)
+   read with every hash verified, equal to the expected examples byte for
+   byte, its JPEGs decoded on the card.  ``python -m
+   attentionalpoolingaction_torch.data.reformat`` in subprocesses over
+   phase 6's fixture-mix records (512 train, 48 eval): TFRecord to
+   ArrayRecord and back, byte-equal to the originals; the codec's MB/s on
+   the host beside TFRecord's.  ``train_cli`` of config #1 at full width,
+   4 steps, from the ArrayRecord files and from the TFRecord originals
+   (same seed, cuDNN deterministic): losses and batch digests bit for
+   bit; ``eval_cli`` of each: equal results; each counted.  The pipeline
+   alone from the two 1280x720 fixtures' records, TFRecord and ArrayRecord
+   in turns (train batch 8, eval batch 16, images/s).  ``hmdb51_rgb``'s
+   video index from an ArrayRecord source equals the TFRecord source's.
+13. A ``kernels`` JSON line (``launches`` from phase 3's serving run for
    the forward pooling kernels, from phase 4's ``train`` for
    ``pool_backward`` and from phase 6's ``train_cli`` for the colour
    kernel; ``train_launches`` from phase 4's ``train``, ``eval_launches``
@@ -229,12 +246,15 @@ Phases; any failure raises and the process exits non-zero:
    ``gloo2_dp_launches``, ``gloo2_zero1_launches`` and ``gloo2_tp_launches``
    (one count a rank) from its two gloo ranks, ``raw_train_launches``
    and ``raw_eval_launches`` from phase 11's ``train_cli`` (both calls)
-   and ``eval_cli``, each kernel counted over each run), then the last
-   line ``{"ok": true, "device": {...}}``.
+   and ``eval_cli``, ``array_record_train_launches`` and
+   ``array_record_eval_launches`` from phase 12's ``train_cli`` and
+   ``eval_cli`` from ArrayRecord, each kernel counted over each run), then
+   the last line ``{"ok": true, "device": {...}}``.
 
 The kernels (``csrc/attn_pool.cu``, ``csrc/attn_pool_backward.cu``,
-``csrc/jpeg_decode.cu`` with ``nvcc``, ``csrc/tfrecord_index.cc`` with the
-host compiler) build at once, each in its own thread, before phase 2.
+``csrc/jpeg_decode.cu`` with ``nvcc``, ``csrc/tfrecord_index.cc`` and
+``csrc/array_record.cc`` with the host compiler) build at once, each in
+its own thread, before phase 2.
 
 ``--cards N`` runs, instead of the phases, the mesh across N cards (one
 process a card over NCCL, rank r on card r): resnet_v1_50 at 96 px with
@@ -296,9 +316,10 @@ from attentionalpoolingaction_torch import serving
 from attentionalpoolingaction_torch import train
 from attentionalpoolingaction_torch import train_cli
 from attentionalpoolingaction_torch import visualize_cli
+from attentionalpoolingaction_torch.data import array_record
 from attentionalpoolingaction_torch.data import grain_pipeline, jpeg
 from attentionalpoolingaction_torch.data import native_io, pipeline, png
-from attentionalpoolingaction_torch.data import records
+from attentionalpoolingaction_torch.data import records, reformat, zstd
 from attentionalpoolingaction_torch.data import preprocessing as pp
 from attentionalpoolingaction_torch.models import inference as inf
 from attentionalpoolingaction_torch.ops import _build
@@ -495,7 +516,7 @@ def build_libraries():
     """Build every native library of the port at once, one thread each (a
     compiler process each), and raise the first failure."""
     libs = [_build.ATTN_POOL, _build.ATTN_POOL_BACKWARD, jpeg.LIBRARY,
-            native_io.LIBRARY]
+            native_io.LIBRARY, array_record.LIBRARY]
     times, errors = {}, []
 
     def build(lib):
@@ -4925,6 +4946,314 @@ def phase_raw(card):
     return out
 
 
+# -- phase 12 ----------------------------------------------------------------
+
+AR_FIXTURE = os.path.join(FIXTURES, "jax_written.array_record")
+# tests/fixtures_torch/make_fixtures.py's ARRAY_RECORD_EXAMPLES
+AR_FIXTURE_EXAMPLES = ("mpii_a_1280x720.jpg", "mpii_b_1280x720.jpg",
+                       "gray_400x300.jpg")
+AR_STEPS = 4
+AR_VIDEOS, AR_FRAMES = 6, 4
+
+
+def ar_fixture_examples():
+    """The examples that make_fixtures.py's ``array_record_examples``
+    writes: JPEG i of ``AR_FIXTURE_EXAMPLES``, label ``7 i + 3``, keypoints
+    ``(i + 1) * arange(32)``, every joint visible."""
+    out = []
+    for i, name in enumerate(AR_FIXTURE_EXAMPLES):
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            data = f.read()
+        h, w = jpeg.image_size(data)
+        out.append(records.make_example(
+            data, height=h, width=w, label=7 * i + 3,
+            keypoints=(i + 1) * np.arange(32, dtype=np.float32),
+            visibility=np.ones(16, np.float32)))
+    return out
+
+
+def check_array_record_fixture():
+    """The file that the JAX package's writer made, read by the port's
+    codec with every hash verified: the expected examples, byte for byte;
+    their JPEGs decoded on the card, equal to a decode of the fixture
+    files."""
+    t0 = time.perf_counter()
+    f = array_record.ArrayRecordFile(AR_FIXTURE, verify_hash=True)
+    got = [f[i] for i in range(len(f))]
+    read_s = time.perf_counter() - t0
+    want = ar_fixture_examples()
+    if got != want or f.writer_options != array_record.writer_options(1):
+        raise AssertionError(
+            f"{AR_FIXTURE}: {len(got)} records of {[len(r) for r in got]} "
+            f"bytes, options {f.writer_options!r}; want "
+            f"{[len(r) for r in want]} bytes, equal: "
+            f"{[g == w for g, w in zip(got, want)]}")
+    if len(got[0]) <= array_record.BLOCK_SIZE:
+        raise AssertionError("no record of the fixture spans a block")
+    spec = train.get_dataset("mpii")
+    images = [records.parse_example(r, spec)["image_bytes"] for r in got]
+    dev = torch.device("cuda")
+    decoded, launches = counted(lambda: jpeg.decode(images, dev))
+    direct = jpeg.decode([open(os.path.join(FIXTURES, n), "rb").read()
+                          for n in AR_FIXTURE_EXAMPLES], dev)
+    shapes = [tuple(t.shape) for t in decoded]
+    if shapes != [(720, 1280, 3), (720, 1280, 3), (300, 400, 3)] or \
+            any(not torch.equal(a, b) for a, b in zip(decoded, direct)) or \
+            launches["ycc_to_rgb"] != 1:
+        raise AssertionError(f"the fixture's JPEGs decoded to {shapes}, "
+                             f"launches {launches}")
+    log(f"{os.path.relpath(AR_FIXTURE, HERE)} "
+        f"({os.path.getsize(AR_FIXTURE)} bytes, written by the JAX "
+        f"package's write_array_record): {len(got)} records of "
+        f"{[len(r) for r in got]} bytes read with every hash verified in "
+        f"{1e3 * read_s:.1f} ms, equal to the expected examples; their "
+        f"JPEGs decoded on the card to {shapes} (one colour launch), equal "
+        f"to the fixture files' decode")
+    return {"records": len(got), "bytes": [len(r) for r in got],
+            "read_ms": 1e3 * read_s, "decode_launches": launches}
+
+
+def codec_rates(tfr_path, d):
+    """MB/s of record bytes on the host: the port's ArrayRecord writer and
+    reader (hashes verified and not) beside the TFRecord writer (with its
+    ``.idx``) and the indexed TFRecord reader, over the records of
+    ``tfr_path``; one pass each."""
+    recs = list(records.read_tfrecord(tfr_path))
+    mb = sum(len(r) for r in recs) / 1e6
+    out = {"records": len(recs), "mb": mb}
+    ar_path, tfr_copy = os.path.join(d, "rate.array_record"), \
+        os.path.join(d, "rate.tfrecord")
+    for name, fn in (
+            ("array_record_write", lambda: records.write_array_record(
+                ar_path, recs)),
+            # its index, as ArrayRecord's footer
+            ("tfrecord_write", lambda: (records.write_tfrecord(tfr_copy,
+                                                               recs),
+                                        native_io.build_index(tfr_copy))),
+            ("array_record_read", lambda: [
+                r for f in [array_record.ArrayRecordFile(ar_path)]
+                for r in (f[i] for i in range(len(f)))]),
+            ("array_record_read_verified", lambda: [
+                r for f in [array_record.ArrayRecordFile(
+                    ar_path, verify_hash=True)]
+                for r in (f[i] for i in range(len(f)))]),
+            ("tfrecord_read", lambda: [
+                r for f in [native_io.IndexedTFRecordFile(tfr_copy)]
+                for r in (f[i] for i in range(len(f)))])):
+        t0 = time.perf_counter()
+        result = fn()
+        out[f"{name}_mb_per_s"] = mb / (time.perf_counter() - t0)
+        if name.endswith("read") or name.endswith("verified"):
+            if result != recs:
+                raise AssertionError(f"{name}: the records differ")
+    return out
+
+
+def reformat_round_trip(paths, d):
+    """``python -m attentionalpoolingaction_torch.data.reformat`` over the
+    TFRecord files of ``paths``: to ArrayRecord, then back to TFRecord,
+    each file equal to its original byte for byte.  The ArrayRecord
+    paths."""
+    src_dir = os.path.dirname(paths["train"])
+    ar_dir, back_dir = os.path.join(d, "ar"), os.path.join(d, "back")
+    out = {}
+    for what, src, dst in (
+            ("to_array_record", os.path.join(src_dir, "*.tfrecord"), ar_dir),
+            ("to_tfrecord", os.path.join(ar_dir, "*.array_record"),
+             back_dir)):
+        t0 = time.perf_counter()
+        proc = run_converter("reformat", ["--src", src, "--dst_dir", dst])
+        out[f"{what}_s"] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"reformat {what} exited "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+    ar_paths = {}
+    for split, path in paths.items():
+        base = os.path.splitext(os.path.basename(path))[0]
+        ar_paths[split] = os.path.join(ar_dir, base + ".array_record")
+        back = os.path.join(back_dir, base + ".tfrecord")
+        with open(path, "rb") as a, open(back, "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"reformat round trip of {path} is not "
+                                     "byte-equal")
+    out["bytes"] = {k: [os.path.getsize(paths[k]),
+                        os.path.getsize(ar_paths[k])] for k in paths}
+    log(f"reformat in subprocesses: TFRecord -> ArrayRecord "
+        f"{out['to_array_record_s']:.2f} s, back {out['to_tfrecord_s']:.2f} "
+        f"s, byte-equal to the originals; bytes (TFRecord, ArrayRecord) "
+        f"{out['bytes']}")
+    return ar_paths, out
+
+
+def array_record_clis(tfr_paths, ar_paths, d):
+    """``train_cli`` of config #1 at full width for ``AR_STEPS`` steps from
+    the ArrayRecord files and from the TFRecord originals, seeded alike
+    (cuDNN deterministic): losses and batch digests equal bit for bit;
+    ``eval_cli`` of each: results equal.  Each counted."""
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for kind, paths in (("tfrecord", tfr_paths),
+                            ("array_record", ar_paths)):
+            run_dir = os.path.join(d, f"run_{kind}")
+            digests = []
+            t0 = time.perf_counter()
+            with digesting(digests):
+                state, launches = counted(lambda: train_cli.main([
+                    "--config", "mpii_rank1_224",
+                    "--train_pattern", paths["train"], "--workdir", run_dir,
+                    "--num_steps", str(AR_STEPS),
+                    "--set", f"checkpoint_every={AR_STEPS}",
+                    "--set", "log_every=1"]))
+            train_s = time.perf_counter() - t0
+            what = f"train_cli from {kind}"
+            if state.step != AR_STEPS:
+                raise AssertionError(f"{what}: step {state.step}")
+            del state
+            expect_launches(what, launches, AR_STEPS, backward=AR_STEPS)
+            check_colour_launches(what, launches, jpeg.decode_count,
+                                  jpeg.decode_calls, jpeg.ycc_images,
+                                  least=8 * AR_STEPS)
+            losses = [v for _, v in read_scalars(run_dir)["loss/total"]]
+            t0 = time.perf_counter()
+            printed, eval_launches = counted(lambda: eval_cli.main([
+                "--config", "mpii_rank1_224", "--workdir", run_dir,
+                "--eval_pattern", paths["val"], "--notb"]))
+            eval_s = time.perf_counter() - t0
+            batches = -(-N_EVAL_RECORDS // config_lib.get_config(
+                "mpii_rank1_224").eval_batch_size)
+            expect_launches(f"eval_cli from {kind}: {batches} batches",
+                            eval_launches, batches)
+            check_colour_launches(f"eval_cli from {kind}", eval_launches,
+                                  jpeg.decode_count, jpeg.decode_calls,
+                                  jpeg.ycc_images, least=N_EVAL_RECORDS)
+            runs[kind] = {"losses": losses, "digests": digests,
+                          "eval": printed[-1], "train_launches": launches,
+                          "eval_launches": eval_launches,
+                          "train_cli_s": train_s, "eval_cli_s": eval_s}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    t, a = runs["tfrecord"], runs["array_record"]
+    if len(a["losses"]) != AR_STEPS or a["losses"] != t["losses"] or \
+            a["digests"] != t["digests"] or len(a["digests"]) != AR_STEPS \
+            or a["eval"] != t["eval"] or \
+            a["eval"]["num_examples"] != N_EVAL_RECORDS or \
+            not np.isfinite(a["losses"]).all():
+        raise AssertionError(
+            f"config #1 from ArrayRecord vs TFRecord: losses {a['losses']} "
+            f"vs {t['losses']}, batches equal {a['digests'] == t['digests']}"
+            f", eval {a['eval']} vs {t['eval']}")
+    log(f"train_cli, config #1 at full width, {AR_STEPS} steps from "
+        f"ArrayRecord and from TFRecord: losses and batch digests equal bit "
+        f"for bit (" + ", ".join(f"{v:.4f}" for v in a["losses"])
+        + f"); {a['train_cli_s']:.1f} vs {t['train_cli_s']:.1f} s; launches "
+        f"{a['train_launches']}; eval_cli equal: {a['eval']}; launches "
+        f"{a['eval_launches']}")
+    return {"losses": a["losses"], "eval_cli": a["eval"],
+            "train_launches": a["train_launches"],
+            "eval_launches": a["eval_launches"],
+            "tfrecord_train_launches": t["train_launches"],
+            "seconds": {k: {"train_cli_s": runs[k]["train_cli_s"],
+                            "eval_cli_s": runs[k]["eval_cli_s"]}
+                        for k in runs}}
+
+
+def array_record_rates(tfr_paths, ar_paths):
+    """The pipeline alone from the records of the two 1280x720 fixtures,
+    TFRecord and ArrayRecord in turns (TFRecord, ArrayRecord, ArrayRecord,
+    TFRecord): train at batch 8, eval at batch 16, images/s; the mean of
+    each kind's two turns."""
+    rates = {k: {"train": [], "eval": []} for k in ("tfrecord",
+                                                    "array_record")}
+    for kind in ("tfrecord", "array_record", "array_record", "tfrecord"):
+        paths = tfr_paths if kind == "tfrecord" else ar_paths
+        rates[kind]["train"].append(train_pipeline_rate(paths["train"]))
+        rates[kind]["eval"].append(eval_pipeline_rate(paths["val"]))
+    return {f"pipeline_{side}_images_per_s_mpii_{kind}":
+            float(np.mean(rates[kind][side]))
+            for kind in rates for side in ("train", "eval")} | {
+            "turns": rates}
+
+
+def check_video_index(d, datas):
+    """``hmdb51_rgb``'s video index from an ArrayRecord source equals the
+    TFRecord source's: ``AR_VIDEOS`` videos of ``AR_FRAMES`` frames."""
+    spec = train.get_dataset("hmdb51")
+    small = [x for x in datas if jpeg.image_size(x)[0] < 720]
+
+    def examples():
+        for v in range(AR_VIDEOS):
+            for k in range(AR_FRAMES):
+                data = small[(v + k) % len(small)]
+                h, w = jpeg.image_size(data)
+                yield records.make_example(data, height=h, width=w,
+                                           label=v % 51, video_id=v,
+                                           frame=k)
+
+    tfr = os.path.join(d, "hmdb.tfrecord")
+    records.write_tfrecord(tfr, examples())
+    ar = os.path.join(d, "hmdb.array_record")
+    records.write_array_record(ar, records.read_tfrecord(tfr))
+    from_ar = grain_pipeline.build_video_index(native_io.make_source(ar),
+                                               spec)
+    from_tfr = grain_pipeline.build_video_index(native_io.make_source(tfr),
+                                                spec)
+    want = {v: list(range(v * AR_FRAMES, (v + 1) * AR_FRAMES))
+            for v in range(AR_VIDEOS)}
+    if from_ar != from_tfr or from_ar != want:
+        raise AssertionError(f"video index from ArrayRecord {from_ar}, from "
+                             f"TFRecord {from_tfr}")
+    log(f"hmdb51_rgb video index from ArrayRecord ({AR_VIDEOS} videos x "
+        f"{AR_FRAMES} frames) equals the TFRecord source's")
+    return {"videos": AR_VIDEOS, "frames": AR_FRAMES}
+
+
+def phase_array_record(card):
+    """Config #1 from ArrayRecord files; see the module docstring, phase
+    12."""
+    t_phase = time.monotonic()
+    out = {"card": card, "libzstd": zstd.library_path(),
+           "libzstd_version": zstd.version()}
+    log(f"phase 12: {zstd.LIBRARY_NAME} is {out['libzstd']} (version "
+        f"{out['libzstd_version']})")
+    out["fixture"] = check_array_record_fixture()
+    names, datas, _, _ = load_fixtures()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ar_") as d:
+        mix = os.path.join(d, "mix")
+        os.makedirs(mix)
+        tfr_paths = write_records(mix, datas)
+        ar_paths, out["reformat"] = reformat_round_trip(tfr_paths, d)
+        out["codec"] = codec_rates(tfr_paths["train"], d)
+        out["clis"] = array_record_clis(tfr_paths, ar_paths, d)
+        mpii_dir = os.path.join(d, "mpii")
+        os.makedirs(mpii_dir)
+        mpii_tfr = write_records(
+            mpii_dir, [x for n, x in zip(names, datas)
+                       if n.startswith("mpii_")], prefix="mpii_")
+        mpii_ar = {k: reformat.reformat_file(p, d)
+                   for k, p in mpii_tfr.items()}
+        out["rates"] = array_record_rates(mpii_tfr, mpii_ar)
+        out["video_index"] = check_video_index(d, datas)
+    c, r = out["codec"], out["rates"]
+    log(f"phase 12 rates on {card}: the codec on the host over "
+        f"{c['records']} records ({c['mb']:.1f} MB): ArrayRecord write "
+        f"{c['array_record_write_mb_per_s']:.1f} MB/s, read "
+        f"{c['array_record_read_mb_per_s']:.1f} MB/s "
+        f"({c['array_record_read_verified_mb_per_s']:.1f} with hashes "
+        f"verified); TFRecord write {c['tfrecord_write_mb_per_s']:.1f} MB/s, "
+        f"indexed read {c['tfrecord_read_mb_per_s']:.1f} MB/s.  Pipeline "
+        f"alone from the 1280x720 records, in turns: train "
+        f"{r['pipeline_train_images_per_s_mpii_array_record']:.1f} images/s "
+        f"from ArrayRecord vs "
+        f"{r['pipeline_train_images_per_s_mpii_tfrecord']:.1f} from "
+        f"TFRecord (batch 8), eval "
+        f"{r['pipeline_eval_images_per_s_mpii_array_record']:.1f} vs "
+        f"{r['pipeline_eval_images_per_s_mpii_tfrecord']:.1f} (batch 16)")
+    out["phase_s"] = time.monotonic() - t_phase
+    log(f"phase 12 took {out['phase_s']:.1f} s (workdir removed)")
+    return out
+
+
 def cards_worker(workdir):
     """One rank a card over NCCL, world = the cards: DP vs one process,
     ZeRO-1 vs DP and the ``(n/2, 2)`` data x model step of ``hico``
@@ -5212,6 +5541,7 @@ def main():
     meshed = phase_mesh(card)
     config5, gloo2 = meshed["config5"], meshed["gloo2"]["ranks"]
     raw = phase_raw(card)
+    from_ar = phase_array_record(card)
 
     def path_launches(name):
         """The launches of ``name`` on each main path, each counted over
@@ -5253,7 +5583,11 @@ def main():
                 "gloo2_tp_launches": [r["tp"]["launches"][name]
                                       for r in gloo2],
                 "raw_train_launches": raw["clis"]["train_launches"][name],
-                "raw_eval_launches": raw["clis"]["eval_launches"][name]}
+                "raw_eval_launches": raw["clis"]["eval_launches"][name],
+                "array_record_train_launches":
+                    from_ar["clis"]["train_launches"][name],
+                "array_record_eval_launches":
+                    from_ar["clis"]["eval_launches"][name]}
 
     kernels = []
     for name in ("saliency_summary", "project_logits", "pool_backward"):
@@ -5302,6 +5636,10 @@ def main():
     log(json.dumps({"export_run": exported}, default=str))
     log(json.dumps({"mesh_run": meshed}, default=str))
     log(json.dumps({"raw_run": raw}, default=str))
+    log(json.dumps({"array_record_run": {
+        k: v for k, v in from_ar.items() if k != "clis"} | {
+        "clis": {k: v for k, v in from_ar["clis"].items()
+                 if not k.endswith("launches")}}}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,16 +19,27 @@ imports no JAX).  Writes, beside this file:
     ``numpy.random.default_rng(TRAIN_SEED + i)``, with both transforms.
     The crops are stored as uint8 differences along the width, which
     deflate well: ``np.cumsum(dx, axis=2, dtype=np.uint8)`` gives them
-    back exactly.
+    back exactly;
+  * ``jax_written.array_record``: the MPII-schema examples of
+    ``ARRAY_RECORD_EXAMPLES`` (:func:`array_record_examples`, made by the
+    port's ``records.make_example``), written by the JAX package's
+    ``records.write_array_record`` (Grain's ``array_record``), so that the
+    port's codec is held against bytes of the JAX package's writer on the
+    card, where ``array_record`` is not installed.  One record (the first
+    1280x720 JPEG) spans a 64 KiB block boundary.
+
+``--only array_record`` writes that file alone, from the JPEGs as they are.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 
 import cv2
 import numpy as np
 
+from attentionalpoolingaction_torch.data import records as port_records
 from attentionalpoolingaction_tpu.data import preprocessing_np as ppnp
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -45,6 +56,37 @@ SPECS = {
 }
 NAMES = list(SPECS)
 PNG_OF = "odd_517x333.jpg"
+ARRAY_RECORD = "jax_written.array_record"
+ARRAY_RECORD_EXAMPLES = ("mpii_a_1280x720.jpg", "mpii_b_1280x720.jpg",
+                         "gray_400x300.jpg")
+MPII_JOINTS = 16
+
+
+def array_record_examples(read=None) -> list[bytes]:
+    """The serialized examples of ``jax_written.array_record``: example i
+    holds the JPEG ``ARRAY_RECORD_EXAMPLES[i]`` (``read(name) -> bytes``,
+    by default the file beside this one), label ``7 * i + 3`` and
+    keypoints ``(i + 1) * arange(32)`` (y, x) with every joint visible."""
+    if read is None:
+        def read(name):
+            with open(os.path.join(HERE, name), "rb") as f:
+                return f.read()
+    out = []
+    for i, name in enumerate(ARRAY_RECORD_EXAMPLES):
+        h, w = SPECS[name][:2]
+        out.append(port_records.make_example(
+            read(name), height=h, width=w, label=7 * i + 3,
+            keypoints=(i + 1) * np.arange(2 * MPII_JOINTS, dtype=np.float32),
+            visibility=np.ones(MPII_JOINTS, np.float32)))
+    return out
+
+
+def write_array_record_fixture() -> None:
+    from attentionalpoolingaction_tpu.data import records as jax_records
+
+    path = os.path.join(HERE, ARRAY_RECORD)
+    jax_records.write_array_record(path, array_record_examples())
+    print(f"{ARRAY_RECORD}: {os.path.getsize(path)} bytes")
 
 
 def scene(h: int, w: int, seed: int) -> np.ndarray:
@@ -107,6 +149,12 @@ def golden(datas: list[bytes]) -> dict:
 
 
 def main():
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--only", choices=["array_record"],
+                   help="write this fixture alone")
+    if p.parse_args().only == "array_record":
+        write_array_record_fixture()
+        return
     datas = []
     for i, (name, (h, w, gray, sampling, quality)) in enumerate(
             SPECS.items()):
@@ -130,6 +178,7 @@ def main():
                         names=np.array(NAMES), **gold)
     print("golden.npz:", os.path.getsize(os.path.join(HERE, "golden.npz")),
           "bytes")
+    write_array_record_fixture()
 
 
 if __name__ == "__main__":

@@ -63,8 +63,9 @@ def test_framing_bytes_equal_jax(tmp_path):
             w.write(d)
     got = [list(records.read_tfrecord(p)) for p in w.paths]
     assert got == [data[i::3] for i in range(3)] and w.count == len(data)
-    with pytest.raises(NotImplementedError, match="ArrayRecord"):
-        records.write_array_record(str(tmp_path / "x.array_record"), data)
+    records.write_array_record(str(tmp_path / "x.array_record"), data)
+    got = native_io.make_source(str(tmp_path / "x.array_record"))
+    assert [got[i] for i in range(len(got))] == data
 
 
 def test_index_byte_equal_and_read_across_packages(tmp_path):
@@ -87,8 +88,10 @@ def test_index_byte_equal_and_read_across_packages(tmp_path):
         port[23]
     src = native_io.make_source([path, path])
     assert len(src) == 46 and src[23] == data[0]
-    with pytest.raises(NotImplementedError, match="ArrayRecord"):
-        native_io.make_source([str(tmp_path / "a.array_record")])
+    records.write_array_record(str(tmp_path / "a.array_record"), data)
+    src = native_io.make_source([str(tmp_path / "a.array_record")])
+    assert isinstance(src, native_io.ArrayRecordDataSource)
+    assert len(src) == 23 and src[-1] == data[-1]
 
 
 def test_corrupt_record_detected(tmp_path):
