@@ -3,8 +3,9 @@ keep-best retention, and the TF-slim checkpoint converter (slim
 ``resnet_v1_101/...`` variable names -> Flax-layout trees) for ImageNet
 init.  Port of the JAX package's ``checkpoint.py``.
 
-The JAX package writes Orbax, which the card's machine does not have, so
-the port keeps its own format under the same directory layout:
+The JAX package writes Orbax, which the card's machine does not have; the
+port writes its own format under the same directory layout and reads
+both:
 
     <workdir>/checkpoints/<step>/state.pt       the rolling window
     <workdir>/checkpoints_best/<step>/state.pt  the keep-best slot
@@ -16,7 +17,15 @@ model's state dict: parameters and BN running statistics), ``optimizer``
 (the optimizer's state dict: momentum buffers or AdamW's moments) and,
 when the run keeps one, ``ema_params`` (the parameter EMA by name).  A
 save writes ``<step>.tmp/`` and renames it into place, so a step
-directory is either whole or absent.  An Orbax step directory raises.
+directory is either whole or absent.
+
+A step directory the JAX package wrote (an Orbax step) is read by
+``orbax_checkpoint.py`` into the same payload, its optimizer state by
+parameter name (``TrainState.load_payload`` places it); one without its
+``_CHECKPOINT_METADATA`` (not committed) is not a step, nor is Orbax's
+``<step>.orbax-checkpoint-tmp-*``.  A directory may hold steps of both
+formats (a run of the JAX package resumed by the port): they are listed,
+restored and pruned alike.
 
 Saves are asynchronous, as the JAX package's Orbax saves are
 (``enable_async_checkpointing``): ``CheckpointManager.save`` copies the
@@ -31,7 +40,8 @@ so does interpreter exit; an error of the background write is raised by
 the first of them.
 
 Slim checkpoints are read by the port's own reader of TF's V1 and V2
-formats (``tf_checkpoint.py``), in place of ``tf.train.load_checkpoint``.
+formats (``tf_checkpoint.py``), in place of ``tf.train.load_checkpoint``,
+and written (``export_slim_checkpoint``) by its writer of V2 bundles.
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ from typing import Any
 import numpy as np
 import torch
 
+import attentionalpoolingaction_torch.orbax_checkpoint as orbax_checkpoint
 from attentionalpoolingaction_torch import convert
 from attentionalpoolingaction_torch import tf_checkpoint
 from attentionalpoolingaction_torch.parallel import multihost
@@ -149,12 +160,14 @@ class CheckpointManager:
         if not self.directory.is_dir():
             return []
         return sorted(int(p.name) for p in self.directory.iterdir()
-                      if p.name.isdigit() and p.is_dir())
+                      if p.name.isdigit() and p.is_dir() and (
+                          (p / orbax_checkpoint.COMMIT_FILE).exists()
+                          or not orbax_checkpoint.is_orbax_step(p)))
 
     def all_steps(self) -> list[int]:
         """The committed steps, ascending, once the save in flight has
         committed; leftover ``<step>.tmp`` directories of an interrupted
-        save are not steps."""
+        save, and Orbax steps that were not committed, are not steps."""
         _finish_write(self.directory)
         return self._listed_steps()
 
@@ -235,26 +248,26 @@ class CheckpointManager:
             for s in self._listed_steps()[:-self.max_to_keep]:
                 shutil.rmtree(self.step_dir(s), ignore_errors=True)
 
-    def load(self, step: int, map_location, *, mmap: bool = False) -> dict:
+    def load(self, step: int, map_location, *, mmap: bool = False,
+             optimizer: bool = True) -> dict:
         """The payload of step ``step``, its tensors on ``map_location``
         (memory-mapped, and read only where touched, with ``mmap``), once
-        the save in flight has committed."""
+        the save in flight has committed.  An Orbax step is read by
+        ``orbax_checkpoint.read_payload``, its optimizer state only with
+        ``optimizer``."""
         _finish_write(self.directory)
         d = self.step_dir(step)
         f = d / CHECKPOINT_FILE
-        if not f.is_file():
-            if (d / "default").exists() or any(
-                    p.name.startswith("_CHECKPOINT_METADATA")
-                    for p in d.glob("_*")):
-                raise ValueError(
-                    f"{d} is an Orbax checkpoint, the JAX package's format; "
-                    f"the port reads only its own ({CHECKPOINT_FILE}), and "
-                    "reading Orbax is not ported (the card's machine has no "
-                    "Orbax)")
-            raise ValueError(f"{d} holds no {CHECKPOINT_FILE}: not a "
-                             "checkpoint of the port")
-        return torch.load(f, map_location=map_location, weights_only=True,
-                          mmap=mmap)
+        if f.is_file():
+            return torch.load(f, map_location=map_location,
+                              weights_only=True, mmap=mmap)
+        if orbax_checkpoint.is_orbax_step(d):
+            payload = orbax_checkpoint.read_payload(d, optimizer=optimizer)
+            return _map_tensors(payload,
+                                lambda _, t: t.to(map_location))
+        raise ValueError(f"{d} holds neither {CHECKPOINT_FILE} nor an Orbax "
+                         "step: not a checkpoint of the port or of the JAX "
+                         "package")
 
     def reload(self) -> None:
         """Nothing to drop: every listing reads the directory (kept for
@@ -305,11 +318,15 @@ def restore(manager: CheckpointManager, state, step: int | None = None):
 
 
 def saved_tree_keys(manager: CheckpointManager, step=None) -> set:
-    """Top-level keys of a saved step (e.g. whether it carries
-    ``ema_params``)."""
+    """Top-level keys of a saved step's payload (e.g. whether it carries
+    ``ema_params``); an Orbax step's from its metadata alone."""
     step = manager.latest_step() if step is None else step
     if step is None:
         return set()
+    d = manager.step_dir(step)
+    if not (d / CHECKPOINT_FILE).is_file() and \
+            orbax_checkpoint.is_orbax_step(d):
+        return orbax_checkpoint.payload_keys(d)
     return set(manager.load(step, map_location="cpu", mmap=True))
 
 
@@ -333,7 +350,8 @@ def restore_for_eval(manager: CheckpointManager, step=None
     step = manager.latest_step() if step is None else step
     if step is None:
         return None
-    payload = manager.load(step, map_location="cpu", mmap=True)
+    payload = manager.load(step, map_location="cpu", mmap=True,
+                           optimizer=False)
     params, batch_stats = convert.state_dict_to_flax(payload["model"])
     ema = payload.get("ema_params")
     return EvalState(
@@ -532,6 +550,22 @@ def convert_slim_checkpoint(ckpt_path: str, *,
         log.info("slim convert: skipped %d vars (e.g. %s)",
                  len(skipped), skipped[:3])
     return out
+
+
+def export_slim_checkpoint(variables, path: str, *,
+                           model_scope: str = "resnet_v1_101") -> int:
+    """Write the backbone of the Flax-layout ``variables`` (``params`` and
+    ``batch_stats``) as the TF-slim V2 checkpoint ``path``, under slim's
+    names (the inverse of :func:`convert_slim_checkpoint`), with the
+    port's writer (``tf_checkpoint.write_v2``).  Returns the number of
+    variables written."""
+    named = {}
+    for coll in ("params", "batch_stats"):
+        for fpath, val in _flatten(variables.get(coll, {})).items():
+            name = _map_flax_path(coll, fpath, model_scope)
+            if name is not None:
+                named[name] = np.asarray(val)
+    return tf_checkpoint.write_v2(path, named)
 
 
 def _copy_tree(tree):

@@ -10,8 +10,10 @@ not on the card's machine, so this is the port's own pipeline:
     on across epoch boundaries (no remainder is ever short).  The
     iterator's JSON state is ``{"epoch", "position"}`` of the next batch
     handed out, and a resume from it is bitwise the uninterrupted stream.
-    Grain's own shuffle order is not reproduced: the same seed gives
-    another order than the JAX package's, with the same properties.
+    A state of the JAX package's Grain iterator resumes after the same
+    count of records (:func:`grain_batches`).  Grain's own shuffle order
+    is not reproduced: the same seed gives another order than the JAX
+    package's, with the same properties.
   * **video train** (:func:`make_video_train_dataset`): the items are
     the videos of :func:`build_video_index` (its ``<file>.vidx.json``
     sidecar is the JAX package's, so either package reads the other's),
@@ -63,7 +65,7 @@ from attentionalpoolingaction_torch.data.records import (
 from attentionalpoolingaction_torch.device import resolve_device
 
 __all__ = ["ClipEvalDataset", "EvalDataset", "TrainIterator",
-           "build_video_index", "make_eval_dataset",
+           "build_video_index", "grain_batches", "make_eval_dataset",
            "make_multicrop_eval_dataset",
            "make_train_dataset", "make_train_iterator",
            "make_video_clip_eval_dataset", "make_video_train_dataset",
@@ -249,16 +251,40 @@ class TrainIterator:
         return {"epoch": epoch, "position": pos}
 
     def set_state(self, state: dict) -> None:
+        """Resume at ``state``: the port's ``{"epoch", "position"}``, or
+        the state of the JAX package's Grain iterator, which counts
+        batches (:func:`grain_batches`): the stream then resumes after as
+        many records, at that epoch and position of the port's order."""
         for futures in self._pending:
             for f in futures:
                 f.cancel()
         self._pending.clear()
-        self._next = self._ahead = (int(state["epoch"]) * len(self._index)
-                                    + int(state["position"]))
+        if "epoch" in state:
+            k = (int(state["epoch"]) * len(self._index)
+                 + int(state["position"]))
+        else:
+            k = grain_batches(state) * self._batch_size
+        self._next = self._ahead = k
 
     def close(self) -> None:
         if self._pool is not None:
             self._pool.shutdown(wait=True, cancel_futures=True)
+
+
+def grain_batches(state: dict) -> int:
+    """The batches that the JAX package's Grain train iterator had handed
+    out at ``state``: ``next_index`` (one process, no workers), or, with
+    ``grain_workers``, each worker's ``next_index`` plus its
+    ``iterations_to_skip``.  Another state raises ``ValueError``."""
+    if set(state) == {"next_index"}:
+        return int(state["next_index"])
+    if {"workers_state", "iterations_to_skip"} <= set(state):
+        return (sum(int(w["next_index"])
+                    for w in state["workers_state"].values())
+                + sum(int(v) for v in state["iterations_to_skip"].values()))
+    raise ValueError(f"an iterator state with keys {sorted(state)} is "
+                     "neither the port's nor Grain's (a tf.data state, "
+                     "tfdata_ckpt, is not resumed)")
 
 
 def _resolved(image_size, resize_min, resize_max):

@@ -1,5 +1,6 @@
 """zstd through ``ctypes`` and the system's ``libzstd.so.1``: the codec of
-ArrayRecord's compressed chunks (``data/array_record.py``).
+ArrayRecord's compressed chunks (``data/array_record.py``) and of Orbax's
+OCDBT files and zarr chunks (``orbax_checkpoint.py``).
 
 The library is loaded at the first call, by its soname, from the dynamic
 loader's path.  Frames are written as riegeli writes them for the JAX
@@ -31,10 +32,18 @@ _C_CHECKSUM_FLAG = 201
 _CONTENT_SIZE_UNKNOWN = 2**64 - 1
 _CONTENT_SIZE_ERROR = 2**64 - 2
 
+_SESSION_ONLY = 1      # ZSTD_reset_session_only
+
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 # one compression and one decompression context a thread
 _contexts = threading.local()
+
+
+class _Buffer(ctypes.Structure):
+    """``ZSTD_inBuffer`` and ``ZSTD_outBuffer``: the same three fields."""
+    _fields_ = [("ptr", ctypes.c_void_p), ("size", ctypes.c_size_t),
+                ("pos", ctypes.c_size_t)]
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -63,6 +72,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ZSTD_decompressDCtx.restype = size_t
     lib.ZSTD_getFrameContentSize.argtypes = [p, size_t]
     lib.ZSTD_getFrameContentSize.restype = ctypes.c_ulonglong
+    lib.ZSTD_DStreamOutSize.argtypes = []
+    lib.ZSTD_DStreamOutSize.restype = size_t
+    lib.ZSTD_decompressStream.argtypes = [
+        p, ctypes.POINTER(_Buffer), ctypes.POINTER(_Buffer)]
+    lib.ZSTD_decompressStream.restype = size_t
+    lib.ZSTD_DCtx_reset.argtypes = [p, ctypes.c_int]
+    lib.ZSTD_DCtx_reset.restype = size_t
     return lib
 
 
@@ -134,15 +150,21 @@ def compress(data) -> bytes:
     return out[:n].tobytes()
 
 
-def decompress(frame, size: int) -> np.ndarray:
+def decompress(frame, size: int | None = None) -> np.ndarray:
     """The ``size`` bytes that the zstd ``frame`` (any contiguous buffer)
     holds, as a uint8 array; ``ValueError`` if the frame is corrupt or
-    holds another size."""
+    holds another size.  With ``size`` None the frame's own content size
+    is taken, or, where the frame does not state one (a streamed frame),
+    whatever it holds."""
     lib = _load()
     src = np.frombuffer(frame, np.uint8)
     stated = lib.ZSTD_getFrameContentSize(src.ctypes.data, src.size)
     if stated == _CONTENT_SIZE_ERROR:
         raise ValueError("not a zstd frame")
+    if size is None:
+        if stated == _CONTENT_SIZE_UNKNOWN:
+            return _decompress_stream(lib, src)
+        size = int(stated)
     if stated != _CONTENT_SIZE_UNKNOWN and stated != size:
         raise ValueError(
             f"zstd frame holds {stated} bytes where {size} are expected")
@@ -154,6 +176,29 @@ def decompress(frame, size: int) -> np.ndarray:
         raise ValueError(
             f"zstd frame holds {n} bytes where {size} are expected")
     return out
+
+
+def _decompress_stream(lib: ctypes.CDLL, src: np.ndarray) -> np.ndarray:
+    """One whole frame of unstated size, decoded in steps of the
+    library's recommended output size."""
+    dctx = _dctx(lib)
+    _check(lib, lib.ZSTD_DCtx_reset(dctx, _SESSION_ONLY), "reset")
+    inb = _Buffer(src.ctypes.data, src.size, 0)
+    step = int(lib.ZSTD_DStreamOutSize())
+    parts = []
+    while True:
+        out = np.empty(step, np.uint8)
+        outb = _Buffer(out.ctypes.data, step, 0)
+        left = _check(lib, lib.ZSTD_decompressStream(
+            dctx, ctypes.byref(outb), ctypes.byref(inb)), "decompression")
+        parts.append(out[:outb.pos])
+        if left == 0:
+            break
+        if inb.pos == inb.size and outb.pos < step:
+            raise ValueError("zstd frame is truncated")
+    if inb.pos != inb.size:
+        raise ValueError(f"{inb.size - inb.pos} bytes after the zstd frame")
+    return np.concatenate(parts)
 
 
 def version() -> str:

@@ -1,6 +1,7 @@
 """A reader of TensorFlow checkpoint files in plain Python: the port's
 stand-in for ``tf.train.load_checkpoint``, for TF-slim ImageNet weights
-on a machine without TensorFlow or ``protobuf``.
+on a machine without TensorFlow or ``protobuf``; and a writer of V2
+bundles (:func:`write_v2`), its inverse.
 
 Two layouts:
 
@@ -26,6 +27,16 @@ No crc32c is checked, neither the table blocks' nor the tensors': a
 crc32c in pure Python runs at a few MB/s, minutes for the ~180 MB
 ResNet-101 file.  Sizes are checked against shapes, so a truncated file
 raises.
+
+:func:`write_v2` writes what TF's ``BundleWriter`` writes for float32 and
+int64 variables: the tensors end to end in ``<prefix>.data-00000-of-00001``
+and ``<prefix>.index``, a table (uncompressed blocks of up to 256 KiB,
+restart points every 16 keys, each block followed by its type byte and
+masked CRC-32C, then the empty metaindex block, the index block, keyed
+by LevelDB's shortest separators, and the 48-byte footer) of the
+``BundleHeaderProto`` under ``""`` and a ``BundleEntryProto`` a name
+(dtype, shape, offset, size, the tensor's masked CRC-32C).  The CRCs
+come from the native library (``data/native_io.py``).
 """
 
 from __future__ import annotations
@@ -36,11 +47,14 @@ from typing import Iterator
 
 import numpy as np
 
-__all__ = ["CheckpointReader"]
+__all__ = ["CheckpointReader", "write_v2"]
 
 _TABLE_MAGIC = 0xDB4775248B80FB57
 _FOOTER_BYTES = 48
 _BLOCK_TRAILER_BYTES = 5         # compression type, masked crc32c
+_BLOCK_BYTES = 262144            # TF's table::Options block_size
+_RESTART_INTERVAL = 16
+_BUNDLE_VERSION = 1              # kTensorBundleVersion
 # TensorFlow's DataType enum: the two a slim checkpoint holds
 _DTYPES = {1: np.dtype("<f4"), 9: np.dtype("<i8")}
 _DTYPE_NAMES = {1: "float32", 2: "float64", 3: "int32", 4: "uint8",
@@ -306,3 +320,138 @@ class CheckpointReader:
             return np.zeros(0, dtype)
         return np.concatenate(parts)
 
+
+
+# -- the writer ---------------------------------------------------------------
+
+def _put_varint(out: bytearray, value: int) -> None:
+    while value >= 0x80:
+        out.append(value & 0x7F | 0x80)
+        value >>= 7
+    out.append(value)
+
+
+def _field(out: bytearray, number: int, value) -> None:
+    """One protobuf field: an int as a varint, bytes length-delimited."""
+    if isinstance(value, int):
+        _put_varint(out, number << 3)
+        _put_varint(out, value)
+    else:
+        _put_varint(out, number << 3 | 2)
+        _put_varint(out, len(value))
+        out += value
+
+
+def _block(entries, restart_interval: int) -> bytes:
+    """One table block: the entries, keys prefix-compressed against the
+    previous one, restarting every ``restart_interval``."""
+    out, restarts, prev = bytearray(), [], b""
+    for i, (key, value) in enumerate(entries):
+        shared = 0
+        if i % restart_interval:
+            while (shared < min(len(key), len(prev))
+                   and key[shared] == prev[shared]):
+                shared += 1
+        else:
+            restarts.append(len(out))
+        for v in (shared, len(key) - shared, len(value)):
+            _put_varint(out, v)
+        out += key[shared:] + value
+        prev = key
+    for r in restarts or [0]:
+        out += struct.pack("<I", r)
+    out += struct.pack("<I", len(restarts or [0]))
+    return bytes(out)
+
+
+def _separator(start: bytes, limit: bytes | None) -> bytes:
+    """A short key >= ``start`` and < ``limit`` (LevelDB's bytewise
+    ``FindShortestSeparator``; with no ``limit``, ``FindShortSuccessor``):
+    the index key of the block that ends with ``start``."""
+    if limit is None:
+        for i, b in enumerate(start):
+            if b != 0xFF:
+                return start[:i] + bytes([b + 1])
+        return start
+    n = 0
+    while n < min(len(start), len(limit)) and start[n] == limit[n]:
+        n += 1
+    if n < min(len(start), len(limit)):
+        b = start[n]
+        if b < 0xFF and b + 1 < limit[n]:
+            return start[:n] + bytes([b + 1])
+    return start
+
+
+def _table(entries) -> bytes:
+    """A LevelDB-format table of ``entries``, (key, value) sorted by key."""
+    from attentionalpoolingaction_torch.data import native_io
+
+    out, index = bytearray(), []
+
+    def put(block: bytes) -> bytes:
+        handle = bytearray()
+        _put_varint(handle, len(out))
+        _put_varint(handle, len(block))
+        out.extend(block + b"\0")
+        out.extend(struct.pack("<I", native_io.masked_crc32c(block + b"\0")))
+        return bytes(handle)
+
+    start = size = 0
+    for i, (key, value) in enumerate(entries):
+        size += len(key) + len(value) + 12
+        if size >= _BLOCK_BYTES or i == len(entries) - 1:
+            block = entries[start:i + 1]
+            following = entries[i + 1][0] if i + 1 < len(entries) else None
+            index.append((_separator(block[-1][0], following),
+                          put(_block(block, _RESTART_INTERVAL))))
+            start, size = i + 1, 0
+    metaindex = put(_block([], _RESTART_INTERVAL))
+    index_handle = put(_block(index, 1))
+    footer = (metaindex + index_handle).ljust(_FOOTER_BYTES - 8, b"\0")
+    out += footer + struct.pack("<Q", _TABLE_MAGIC)
+    return bytes(out)
+
+
+def write_v2(prefix: str, tensors) -> int:
+    """Write ``tensors`` (name -> float32 or int64 array) as the V2
+    checkpoint ``prefix`` (``prefix.index`` and
+    ``prefix.data-00000-of-00001``); returns how many were written."""
+    from attentionalpoolingaction_torch.data import native_io
+
+    codes = {dt: code for code, dt in _DTYPES.items()}
+    entries, offset = [], 0
+    os.makedirs(os.path.dirname(os.path.abspath(prefix)), exist_ok=True)
+    with open(f"{prefix}.data-00000-of-00001", "wb") as f:
+        for name in sorted(tensors):
+            a = np.asarray(tensors[name])
+            code = codes.get(a.dtype.newbyteorder("<"))
+            if code is None:
+                raise NotImplementedError(
+                    f"{name} has dtype {a.dtype}; the writer handles "
+                    "float32 and int64")
+            raw = np.ascontiguousarray(a, a.dtype.newbyteorder("<")
+                                       ).tobytes()
+            f.write(raw)
+            shape = bytearray()
+            for d in a.shape:
+                dim = bytearray()
+                _field(dim, 1, d)
+                _field(shape, 2, bytes(dim))
+            entry = bytearray()
+            _field(entry, 1, code)
+            _field(entry, 2, bytes(shape))
+            if offset:
+                _field(entry, 4, offset)
+            _field(entry, 5, len(raw))
+            _put_varint(entry, 6 << 3 | 5)
+            entry += struct.pack("<I", native_io.masked_crc32c(raw))
+            entries.append((name.encode(), bytes(entry)))
+            offset += len(raw)
+    version, header = bytearray(), bytearray()
+    _field(version, 1, _BUNDLE_VERSION)
+    _field(header, 1, 1)                  # num_shards
+    _field(header, 3, bytes(version))
+    with open(f"{prefix}.index", "wb") as f:
+        f.write(_table([(b"", bytes(header))] + entries))
+    return len(entries)

@@ -169,11 +169,34 @@ class TrainState:
             out["ema_params"] = self.full_ema()
         return out
 
+    def _by_index(self, by_name: Mapping) -> dict:
+        """An optimizer state dict of this state's optimizer from buffers
+        by parameter name (an Orbax step's), with the live optimizer's
+        hyperparameters (the config's)."""
+        names = optimizer_param_names(self.model)
+        if set(by_name) != set(names):
+            raise KeyError(
+                "the saved optimizer state does not cover the model's "
+                f"parameters: missing {sorted(set(names) - set(by_name))[:5]}"
+                f", unknown {sorted(set(by_name) - set(names))[:5]}")
+        groups, start = [], 0
+        for g in self.optimizer.param_groups:
+            n = len(g["params"])
+            groups.append({**{k: v for k, v in g.items() if k != "params"},
+                           "params": list(range(start, start + n))})
+            start += n
+        return {"state": {i: dict(by_name[n]) for i, n in enumerate(names)},
+                "param_groups": groups}
+
     def load_payload(self, payload: Mapping) -> None:
-        """Load a :meth:`payload`, in place, keeping this rank's shards."""
+        """Load a :meth:`payload`, in place, keeping this rank's shards.
+        An optimizer state without ``param_groups`` is by parameter name
+        (an Orbax step's)."""
         sharded = self._sharded()
-        self.model.load_state_dict(self._slice(payload["model"], sharded))
         opt = payload["optimizer"]
+        if "param_groups" not in opt:
+            opt = self._by_index(opt["state"])
+        self.model.load_state_dict(self._slice(payload["model"], sharded))
         if sharded:
             names = optimizer_param_names(self.model)
             opt = {"param_groups": opt["param_groups"],

@@ -130,16 +130,17 @@ Phases; any failure raises and the process exits non-zero:
    ``load_predictor(int8=True)`` with and without calibration files
    (counted), float vs int8 ``predict_arrays`` ms a call at buckets
    1/8/32 in turns, ``eval_cli`` float and ``--set eval_int8=true`` over
-   48 records (mAP, counted), ``predict_cli`` over the fixtures in a
-   subprocess (float and ``--int8``), and an ``hmdb51_clip8`` int8 clip
-   through ``predict_clip_bytes``.
+   48 records (mAP, counted), ``predict_cli`` over the fixtures (float
+   in a subprocess, ``--int8`` in this process), and an ``hmdb51_clip8``
+   int8 clip through ``predict_clip_bytes``.
 9. The exported artifact and the attention-map tools, from seeded
    checkpoints of ``mpii_rank1_224`` (phase 8's weights) and
    ``hmdb51_clip8``.  ``export_cli`` exports ``mpii_rank1_224`` float
    (uint8 and float32 programs), int8 with static scales calibrated on the
-   7 JPEG fixtures, the float uint8 program traced on the CPU, and
-   ``hmdb51_clip8`` with its clip programs; each export's load-back gate
-   (max |dprob| of every program against the live predictor <= 1e-6), its
+   7 JPEG fixtures, the float program traced on the CPU, and
+   ``hmdb51_clip8`` with its clip programs (those three with the uint8
+   program only, to keep this script's clock); each export's load-back
+   gate (max |dprob| of every program against the live predictor <= 1e-6), its
    seconds, its bytes against its weights' (<= 1.05x) and its load seconds
    printed.  Each loaded artifact serves buckets 1/8/32 from one program,
    each pooling kernel once a dispatch (counted); the CPU-traced artifact
@@ -147,7 +148,7 @@ Phases; any failure raises and the process exits non-zero:
    ``serve_cli --exported_dir`` in-process: /predict of the JPEG fixtures
    and the PNG, a batch with a corrupt item, counted, the served crops'
    logits against the golden crops' within phase 6's bound;
-   ``predict_cli --exported_dir`` in a subprocess.  Times, artifact and
+   ``predict_cli --exported_dir`` in this process.  Times, artifact and
    live predictor in turns: ``predict_arrays`` median/p90 at buckets
    1/8/32, float and int8, and /predict p50/p90 at 1 client.  Visualize:
    ``attention_overlays`` on the card (TF32 off) against the CPU (maps
@@ -182,12 +183,13 @@ Phases; any failure raises and the process exits non-zero:
    against this process's mAP (1e-12), every kernel counted on every
    rank, and the data-parallel step's ms (gloo through the host, not
    NCCL: it says nothing of NCCL's speed).
-11. From raw data.  (a) The dataset converters in subprocesses
-   (``python -m attentionalpoolingaction_torch.data.convert_mpii``,
-   ``convert_hico``, ``convert_hmdb``): an MPII release in small (64
-   images naming copies of the JPEG fixtures, fixture 0 under EXIF
-   orientation 6, and a ``.mat`` written by ``scipy.io.savemat`` with
-   ``annolist``, ``act.act_id`` with gaps and ``img_train``), a HICO
+11. From raw data.  (a) The dataset converters (``python -m
+   attentionalpoolingaction_torch.data.convert_mpii`` in a subprocess,
+   ``convert_hico`` and ``convert_hmdb``'s ``main`` in this process):
+   an MPII release in small (64 images naming copies of the JPEG
+   fixtures, fixture 0 under EXIF orientation 6, and a ``.mat`` written
+   by ``scipy.io.savemat`` with ``annolist``, ``act.act_id`` with gaps
+   and ``img_train``), a HICO
    ``anno.mat`` (600 x N of +1/-1/0/NaN) and, where OpenCV is installed
    (``cv2_installed`` is printed), MJPG videos of fixture frames: record
    counts, the label map, labels, keypoints and heights and widths
@@ -220,7 +222,7 @@ Phases; any failure raises and the process exits non-zero:
    MPII-schema examples carrying the two 1280x720 JPEGs and the gray one)
    read with every hash verified, equal to the expected examples byte for
    byte, its JPEGs decoded on the card.  ``python -m
-   attentionalpoolingaction_torch.data.reformat`` in subprocesses over
+   attentionalpoolingaction_torch.data.reformat``'s ``main`` over
    phase 6's fixture-mix records (512 train, 48 eval): TFRecord to
    ArrayRecord and back, byte-equal to the originals; the codec's MB/s on
    the host beside TFRecord's.  ``train_cli`` of config #1 at full width,
@@ -230,7 +232,26 @@ Phases; any failure raises and the process exits non-zero:
    alone from the two 1280x720 fixtures' records, TFRecord and ArrayRecord
    in turns (train batch 8, eval batch 16, images/s).  ``hmdb51_rgb``'s
    video index from an ArrayRecord source equals the TFRecord source's.
-13. A ``kernels`` JSON line (``launches`` from phase 3's serving run for
+13. Config #1 trained by the JAX package: the committed full-width Orbax
+   step (``tests/fixtures_torch/jax_orbax/mpii_rank1_224/1200``, a
+   ``TrainState`` that the JAX package's ``checkpoint.save`` wrote:
+   ResNet-101, SGD momentum with the clip, the EMA) copied into a workdir
+   with a Grain iterator state of the JAX package's (150 batches).
+   ``restore_for_eval`` and a whole restore into a card state are timed
+   beside the same restores of that state saved in the port's format
+   (the fixture's leaves are periodic, so its zstd chunks decode faster
+   than trained weights would: the Orbax read time is not
+   representative).  ``load_predictor`` (``predict_arrays`` of the 7
+   golden eval crops, counted) and ``evaluate`` of the crops injected:
+   logits (TF32 off) against the JAX package's CPU logits stored with the
+   fixture, within ``CPU_RTOL``; ``eval_cli`` over phase 6's records of
+   the fixtures, counted.  ``train_cli`` resumes the JAX step for 4 steps
+   from those records (cuDNN deterministic, counted), and again from the
+   port-format copy: the losses and the final state (model, momentum, EMA)
+   equal bit for bit, and the stream resumed at 1,200 records.
+   ``export_slim_checkpoint`` of the restored backbone, its seconds and
+   bytes, read back by ``tf_checkpoint.CheckpointReader`` bit for bit.
+14. A ``kernels`` JSON line (``launches`` from phase 3's serving run for
    the forward pooling kernels, from phase 4's ``train`` for
    ``pool_backward`` and from phase 6's ``train_cli`` for the colour
    kernel; ``train_launches`` from phase 4's ``train``, ``eval_launches``
@@ -248,8 +269,11 @@ Phases; any failure raises and the process exits non-zero:
    and ``raw_eval_launches`` from phase 11's ``train_cli`` (both calls)
    and ``eval_cli``, ``array_record_train_launches`` and
    ``array_record_eval_launches`` from phase 12's ``train_cli`` and
-   ``eval_cli`` from ArrayRecord, each kernel counted over each run), then
-   the last line ``{"ok": true, "device": {...}}``.
+   ``eval_cli`` from ArrayRecord, ``orbax_serve_launches``,
+   ``orbax_eval_launches`` and ``orbax_train_launches`` from phase 13's
+   ``predict_arrays``, ``eval_cli`` and ``train_cli`` on the JAX step,
+   each kernel counted over each run), then the last line
+   ``{"ok": true, "device": {...}}``.
 
 The kernels (``csrc/attn_pool.cu``, ``csrc/attn_pool_backward.cu``,
 ``csrc/jpeg_decode.cu`` with ``nvcc``, ``csrc/tfrecord_index.cc`` and
@@ -287,10 +311,12 @@ import glob
 import hashlib
 import http.client
 import importlib.util
+import io
 import itertools
 import json
 import os
 import pathlib
+import shutil
 import signal
 import socket
 import struct
@@ -311,12 +337,15 @@ from attentionalpoolingaction_torch import evaluate
 from attentionalpoolingaction_torch import export
 from attentionalpoolingaction_torch import export_cli
 from attentionalpoolingaction_torch import precision
+from attentionalpoolingaction_torch import predict_cli
 from attentionalpoolingaction_torch import serve_cli
 from attentionalpoolingaction_torch import serving
 from attentionalpoolingaction_torch import train
+from attentionalpoolingaction_torch import tf_checkpoint
 from attentionalpoolingaction_torch import train_cli
 from attentionalpoolingaction_torch import visualize_cli
 from attentionalpoolingaction_torch.data import array_record
+from attentionalpoolingaction_torch.data import convert_hico, convert_hmdb
 from attentionalpoolingaction_torch.data import grain_pipeline, jpeg
 from attentionalpoolingaction_torch.data import native_io, pipeline, png
 from attentionalpoolingaction_torch.data import records, reformat, zstd
@@ -2857,12 +2886,14 @@ def check_http(pred, names, datas, crops, png_data, bound):
 
             def short(i):
                 c = http_conn(srv.port)
-                st, _, _ = http_call(c, "POST", "/predict",
-                                     datas[i % len(datas)])
+                st, _, body = http_call(c, "POST", "/predict",
+                                        datas[i % len(datas)])
                 c.close()
-                return st
+                return st, body
 
             statuses = collections.Counter()
+            # the answers other than 200, which say what failed
+            refused = []
             for lo in range(0, HTTP_CONNECTIONS, 20):
                 group = [None] * 20
 
@@ -2875,7 +2906,9 @@ def check_http(pred, names, datas, crops, png_data, bound):
                     t.start()
                 for t in threads:
                     t.join(timeout=120)
-                statuses.update(group)
+                statuses.update(g and g[0] for g in group)
+                refused += [(names[(lo + k) % len(datas)], g[1][:300])
+                            for k, g in enumerate(group) if g and g[0] != 200]
             made = jpeg.decoder_count() - decoders0
         # the golden comparison: the crops the server makes, and the JAX
         # pipeline's, through one forward each
@@ -2930,7 +2963,8 @@ def check_http(pred, names, datas, crops, png_data, bound):
                              f"{rel:.3e} > {bound:.3e}")
     if statuses != {200: HTTP_CONNECTIONS} or not 0 < made <= DECODE_THREADS:
         raise AssertionError(f"short connections {dict(statuses)}, "
-                             f"{made} nvJPEG decoders made")
+                             f"{made} nvJPEG decoders made; answers other "
+                             f"than 200: {refused[:3]}")
     return out
 
 
@@ -3248,21 +3282,42 @@ def int8_eval(cfg, workdir, datas):
     return out
 
 
+def run_module(module, args):
+    """``python -m attentionalpoolingaction_torch.<module> args`` in a
+    fresh process, as a user starts it; its standard output.  An exit
+    code other than 0 raises."""
+    proc = subprocess.run(
+        [sys.executable, "-m", f"attentionalpoolingaction_torch.{module}",
+         *args], capture_output=True, text=True, timeout=600, cwd=HERE)
+    if proc.returncode:
+        raise AssertionError(f"python -m {module} exited {proc.returncode}:"
+                             f" {proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def printed_by(main, args):
+    """What ``main(args)`` prints, run in this process."""
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        main(args)
+    return printed.getvalue()
+
+
 def run_predict_cli(workdir, names, http_topk):
-    """predict_cli over the fixtures in a subprocess, float and --int8: a
-    JSON line an image; the float classes against HTTP's."""
+    """predict_cli over the fixtures, float in a subprocess and --int8 in
+    this process: a JSON line an image; the float classes against
+    HTTP's."""
     paths = [os.path.join(FIXTURES, n) for n in names] + [
         os.path.join(FIXTURES, PNG_FIXTURE)]
+    args = ["--workdir", workdir, "--images", *paths]
     out = {}
-    for what, extra in (("float", []), ("int8", ["--int8"])):
+    for what in ("float", "int8"):
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "attentionalpoolingaction_torch.predict_cli",
-             "--workdir", workdir, "--images", *paths, *extra],
-            capture_output=True, text=True, timeout=600, cwd=HERE)
-        if proc.returncode:
-            raise AssertionError(f"predict_cli {what}: {proc.stderr[-3000:]}")
-        lines = [json.loads(x) for x in proc.stdout.strip().splitlines()]
+        if what == "float":
+            stdout = run_module("predict_cli", args)
+        else:
+            stdout = printed_by(predict_cli.main, [*args, "--int8"])
+        lines = [json.loads(x) for x in stdout.strip().splitlines()]
         if [x["image"] for x in lines] != paths or \
                 any(len(x["topk"]) != 5 for x in lines):
             raise AssertionError(f"predict_cli {what}: {lines}")
@@ -3277,10 +3332,11 @@ def run_predict_cli(workdir, names, http_topk):
                 for c in shared):
             raise AssertionError(f"predict_cli vs HTTP on {line['image']}: "
                                  f"{got} vs {want}")
-    log(f"predict_cli in a subprocess over 8 images: float "
-        f"{out['float']['s']:.1f} s, --int8 {out['int8']['s']:.1f} s "
-        f"(process start, model build and restore included); float top-1 "
-        f"within HTTP's top-5 for every image")
+    log(f"predict_cli over 8 images: float in a subprocess "
+        f"{out['float']['s']:.1f} s (process start included), --int8 in "
+        f"this process {out['int8']['s']:.1f} s (model build and restore "
+        f"included in both); float top-1 within HTTP's top-5 for every "
+        f"image")
     return {k: v["s"] for k, v in out.items()}
 
 
@@ -3522,23 +3578,18 @@ def export_http(pred, names, datas, crops, png_data, bound):
 
 
 def export_predict_cli(art, names):
-    """predict_cli --exported_dir over the fixtures in a subprocess."""
+    """predict_cli --exported_dir over the fixtures, in this process."""
     paths = [os.path.join(FIXTURES, n) for n in names]
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "attentionalpoolingaction_torch.predict_cli",
-         "--exported_dir", art, "--images", *paths],
-        capture_output=True, text=True, timeout=600, cwd=HERE)
-    if proc.returncode:
-        raise AssertionError(f"predict_cli --exported_dir: "
-                             f"{proc.stderr[-3000:]}")
-    lines = [json.loads(x) for x in proc.stdout.strip().splitlines()]
+    lines = [json.loads(x) for x in printed_by(
+        predict_cli.main, ["--exported_dir", art, "--images", *paths]
+    ).strip().splitlines()]
     if [x["image"] for x in lines] != paths or \
             any(len(x["topk"]) != 5 for x in lines):
         raise AssertionError(f"predict_cli --exported_dir: {lines}")
     s = time.perf_counter() - t0
-    log(f"predict_cli --exported_dir in a subprocess over 7 images: "
-        f"{s:.1f} s (process start and artifact load included)")
+    log(f"predict_cli --exported_dir over 7 images: {s:.1f} s (artifact "
+        "load included)")
     return s
 
 
@@ -3744,23 +3795,26 @@ def phase_export(card, golden_bound):
         calib = [os.path.join(FIXTURES, n) for n in names]
         art = {k: os.path.join(d, f"artifact_{k}")
                for k in ("float", "int8", "cpu", "clip8")}
+        # the float artifact carries both input dtypes; the others only
+        # the uint8 program that serving feeds
         out["exports"] = {
             "float": export_artifact(
                 ["--workdir", d, "--out_dir", art["float"]],
                 "mpii_rank1_224 float (uint8, float32)"),
             "int8": export_artifact(
                 ["--workdir", d, "--out_dir", art["int8"], "--int8",
+                 "--input_dtypes", "uint8",
                  *itertools.chain.from_iterable(
                      ("--calibration_images", p) for p in calib)],
-                "mpii_rank1_224 int8, static scales (uint8, float32)"),
+                "mpii_rank1_224 int8, static scales (uint8)"),
             "cpu": export_artifact(
                 ["--workdir", d, "--out_dir", art["cpu"], "--device",
                  "cpu", "--input_dtypes", "uint8"],
                 "mpii_rank1_224 float traced on the CPU (uint8)"),
             "clip8": export_artifact(
                 ["--config", "hmdb51_clip8", "--workdir", hmdb, "--out_dir",
-                 art["clip8"]],
-                "hmdb51_clip8 (uint8, float32; images and clips)")}
+                 art["clip8"], "--input_dtypes", "uint8"],
+                "hmdb51_clip8 (uint8; images and clips)")}
         loaded = {k: export.load_exported(v) for k, v in art.items()}
         for a in loaded.values():
             a.warmup()
@@ -4372,14 +4426,6 @@ def write_raw_hico(d, datas):
     return path, root, annos
 
 
-def run_converter(module, args):
-    """``python -m attentionalpoolingaction_torch.data.<module> args`` in a
-    subprocess; its completed process."""
-    return subprocess.run(
-        [sys.executable, "-m", f"attentionalpoolingaction_torch.data.{module}",
-         *args], cwd=HERE, capture_output=True, text=True, timeout=300)
-
-
 def shard_records(out, split):
     """The records of ``split`` in the converter's shards, in file order."""
     paths = sorted(glob.glob(os.path.join(out, f"{split}-*.tfrecord")))
@@ -4415,12 +4461,10 @@ def convert_mpii_raw(d, datas):
     mat, images = write_raw_mpii(d, datas)
     out = os.path.join(d, "mpii_records")
     t0 = time.perf_counter()
-    proc = run_converter("convert_mpii", [
+    run_module("data.convert_mpii", [
         "--mat", mat, "--images_dir", images, "--out_dir", out,
         "--shards", str(RAW_SHARDS)])
     wall = time.perf_counter() - t0
-    if proc.returncode:
-        raise AssertionError(f"convert_mpii: {proc.stderr[-3000:]}")
     entries = convert_mpii.parse_mpii_mat(scipy.io.loadmat(
         mat, squeeze_me=True, struct_as_record=False)["RELEASE"])
     label_map = convert_mpii.build_label_map(entries)
@@ -4466,12 +4510,9 @@ def convert_hico_raw(d, datas):
     mat, root, annos = write_raw_hico(d, datas)
     out = os.path.join(d, "hico_records")
     t0 = time.perf_counter()
-    proc = run_converter("convert_hico", [
-        "--mat", mat, "--images_dir", root, "--out_dir", out,
-        "--shards", str(RAW_SHARDS)])
+    convert_hico.main(["--mat", mat, "--images_dir", root, "--out_dir", out,
+                       "--shards", str(RAW_SHARDS)])
     wall = time.perf_counter() - t0
-    if proc.returncode:
-        raise AssertionError(f"convert_hico: {proc.stderr[-3000:]}")
     spec = train.get_dataset("hico")
     # round-robin shards read in file order: even items, then odd ones
     order = [i for s in range(RAW_SHARDS)
@@ -4495,7 +4536,7 @@ def convert_hico_raw(d, datas):
     if not np.array_equal(labels, np.nan_to_num(annos["test"][:, order]).T
                           > 0) or batches[0]["image"].device.type != "cuda":
         raise AssertionError("convert_hico: the eval pipeline's labels")
-    log(f"convert_hico (a subprocess, {wall:.1f} s): {RAW_HICO_IMAGES} "
+    log(f"convert_hico ({wall:.1f} s): {RAW_HICO_IMAGES} "
         f"train and {RAW_HICO_IMAGES} test images of 600 classes, multi-hot "
         "and known labels as the .mat, frame sizes; the test split read "
         "back through the eval pipeline on the card")
@@ -4520,11 +4561,13 @@ def convert_hmdb_raw(d, datas):
     args = ["--videos_dir", root, "--splits_dir", splits, "--out_dir", out,
             "--frames_per_video", "4", "--shards", str(RAW_SHARDS)]
     if not cv2_installed:
-        proc = run_converter("convert_hmdb", args)
-        if proc.returncode == 0 or \
-                "No module named 'cv2'" not in proc.stderr:
-            raise AssertionError(f"convert_hmdb without OpenCV: "
-                                 f"{proc.returncode} {proc.stderr[-2000:]}")
+        try:
+            convert_hmdb.main(args)
+        except ModuleNotFoundError as e:
+            if e.name != "cv2":
+                raise
+        else:
+            raise AssertionError("convert_hmdb without OpenCV succeeded")
         log("convert_hmdb without OpenCV: fails with the JAX package's "
             "ModuleNotFoundError (No module named 'cv2')")
         return {"cv2_installed": False}
@@ -4541,10 +4584,8 @@ def convert_hmdb_raw(d, datas):
             w.write(frames[(v + i) % len(frames)])
         w.release()
     t0 = time.perf_counter()
-    proc = run_converter("convert_hmdb", args)
+    convert_hmdb.main(args)
     wall = time.perf_counter() - t0
-    if proc.returncode:
-        raise AssertionError(f"convert_hmdb: {proc.stderr[-3000:]}")
     spec = train.get_dataset("hmdb51")
     gaps = []
     for split, want in (("train", [(0, 0), (1, 1)]), ("test", [(0, 0)])):
@@ -4569,7 +4610,7 @@ def convert_hmdb_raw(d, datas):
             gaps.append(float(np.abs(card.astype(np.int16) - opencv).mean()))
     if max(gaps) > DECODE_MEAN_LEVELS:
         raise AssertionError(f"convert_hmdb frames: decode gaps {gaps}")
-    log(f"convert_hmdb (a subprocess, {wall:.1f} s): 4 videos of 10 MJPG "
+    log(f"convert_hmdb ({wall:.1f} s): 4 videos of 10 MJPG "
         "frames, 4 frames each -> 8 train and 4 test records (the unused "
         "video skipped), read back through the eval pipeline on the card; "
         f"card decode vs OpenCV mean |d| <= {max(gaps):.3f} levels")
@@ -5050,8 +5091,8 @@ def codec_rates(tfr_path, d):
 
 
 def reformat_round_trip(paths, d):
-    """``python -m attentionalpoolingaction_torch.data.reformat`` over the
-    TFRecord files of ``paths``: to ArrayRecord, then back to TFRecord,
+    """``attentionalpoolingaction_torch.data.reformat``'s entry point over
+    the TFRecord files of ``paths``: to ArrayRecord, then back to TFRecord,
     each file equal to its original byte for byte.  The ArrayRecord
     paths."""
     src_dir = os.path.dirname(paths["train"])
@@ -5062,11 +5103,8 @@ def reformat_round_trip(paths, d):
             ("to_tfrecord", os.path.join(ar_dir, "*.array_record"),
              back_dir)):
         t0 = time.perf_counter()
-        proc = run_converter("reformat", ["--src", src, "--dst_dir", dst])
+        reformat.main(["--src", src, "--dst_dir", dst])
         out[f"{what}_s"] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"reformat {what} exited "
-                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
     ar_paths = {}
     for split, path in paths.items():
         base = os.path.splitext(os.path.basename(path))[0]
@@ -5078,7 +5116,7 @@ def reformat_round_trip(paths, d):
                                      "byte-equal")
     out["bytes"] = {k: [os.path.getsize(paths[k]),
                         os.path.getsize(ar_paths[k])] for k in paths}
-    log(f"reformat in subprocesses: TFRecord -> ArrayRecord "
+    log(f"reformat: TFRecord -> ArrayRecord "
         f"{out['to_array_record_s']:.2f} s, back {out['to_tfrecord_s']:.2f} "
         f"s, byte-equal to the originals; bytes (TFRecord, ArrayRecord) "
         f"{out['bytes']}")
@@ -5251,6 +5289,222 @@ def phase_array_record(card):
         f"{r['pipeline_eval_images_per_s_mpii_tfrecord']:.1f} (batch 16)")
     out["phase_s"] = time.monotonic() - t_phase
     log(f"phase 12 took {out['phase_s']:.1f} s (workdir removed)")
+    return out
+
+
+# -- phase 13 ----------------------------------------------------------------
+
+ORBAX_FIXTURE = os.path.join(FIXTURES, "jax_orbax")
+ORBAX_STEP = 1200
+ORBAX_RESUME_STEPS = 4
+ORBAX_GRAIN_BATCHES = 150   # the JAX package's Grain state: 1,200 records
+
+
+def timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def orbax_logits(cfg, restored, crops_u8, want):
+    """``load_predictor`` over the JAX step: ``predict_arrays`` of the 7
+    golden crops counted, then the predictor's and ``evaluate``'s logits
+    (TF32 off) against the JAX package's CPU logits."""
+    pred = serving.load_predictor(cfg, buckets=(1, 8, 32), device="cuda")
+    pred.warmup()
+    if pred.step != ORBAX_STEP:
+        raise AssertionError(f"load_predictor serves step {pred.step}")
+    probs, launches = counted(lambda: pred.predict_arrays(crops_u8))
+    expect_launches("load_predictor of the JAX step, 7 crops", launches, 1,
+                    ycc=0)
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        served = pred._fwd(pred._weights, crops_u8)
+        evaluated = evaluate.Evaluator(cfg, device="cuda").logits(
+            restored, [{"image": crops_u8,
+                        "label": np.zeros(len(crops_u8), np.int32),
+                        "mask": np.ones(len(crops_u8), np.float32)}]
+        )["logits"]
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    scale = float(np.abs(want).max())
+    errs = {"predict_arrays": float(np.abs(served - want).max()) / scale,
+            "evaluate": float(np.abs(evaluated - want).max()) / scale}
+    log(f"the JAX step served and evaluated on the card (TF32 off) against "
+        f"the JAX package's CPU logits of the 7 golden crops: relative "
+        f"{errs['predict_arrays']:.3e} (predict_arrays), "
+        f"{errs['evaluate']:.3e} (evaluate), bound {CPU_RTOL:g}, max "
+        f"|logit| {scale:.1f}; probabilities {probs.shape}, launches "
+        f"{launches}")
+    if not (max(errs.values()) < CPU_RTOL and np.isfinite(probs).all()):
+        raise AssertionError(f"the JAX step's logits on the card: {errs}")
+    return {"logits_rel": errs, "launches": launches}
+
+
+def orbax_resume(paths, jax_dir, port_dir):
+    """train_cli resuming ``ORBAX_RESUME_STEPS`` steps from the JAX step
+    (counted) and from its port-format copy, cuDNN deterministic: the
+    losses and the final states equal bit for bit."""
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, d in (("orbax", jax_dir), ("port", port_dir)):
+            args = ["--config", "mpii_rank1_224", "--train_pattern",
+                    paths["train"], "--workdir", d, "--num_steps",
+                    str(ORBAX_STEP + ORBAX_RESUME_STEPS), "--set",
+                    "ema_decay=0.999", "--set", "log_every=1", "--set",
+                    "checkpoint_every=1000"]
+            (state, launches), s = timed(
+                lambda: counted(lambda: train_cli.main(args)))
+            runs[name] = {"seconds": s, "launches": launches,
+                          "payload": state.payload(), "step": state.step}
+            del state
+    finally:
+        torch.backends.cudnn.deterministic = False
+    expect_launches("train_cli resuming the JAX step", runs["orbax"][
+        "launches"], ORBAX_RESUME_STEPS, backward=ORBAX_RESUME_STEPS)
+
+    a, b = runs["orbax"]["payload"], runs["port"]["payload"]
+    same = {k: all(torch.equal(x, y) for x, y in zip(
+        payload_tensors(a[k]), payload_tensors(b[k]))) for k in a}
+    losses = [[v for _, v in read_scalars(d).get("loss/total", [])]
+              for d in (jax_dir, port_dir)]
+    same["losses"] = losses[0] == losses[1] and \
+        len(losses[0]) == ORBAX_RESUME_STEPS
+    mgr = checkpoint.make_manager(os.path.join(jax_dir, "checkpoints"))
+    stream = json.loads((mgr.directory / f"grain_iter_{ORBAX_STEP + 4}_p0"
+                         ".json").read_text())
+    want_stream = dict(zip(("epoch", "position"), divmod(
+        (ORBAX_GRAIN_BATCHES + ORBAX_RESUME_STEPS) * 8, N_TRAIN_RECORDS)))
+    log(f"train_cli resumed the JAX step {ORBAX_STEP} for "
+        f"{ORBAX_RESUME_STEPS} steps in {runs['orbax']['seconds']:.1f} s "
+        f"({runs['port']['seconds']:.1f} s from the port-format copy): "
+        f"losses {losses[0]}; final states and losses equal bit for bit "
+        f"{same}; steps on disk "
+        f"{mgr.all_steps()}; stream {stream}; launches "
+        f"{runs['orbax']['launches']}")
+    if not all(same.values()) or set(a) != set(b) or \
+            runs["orbax"]["step"] != ORBAX_STEP + ORBAX_RESUME_STEPS or \
+            mgr.all_steps() != [ORBAX_STEP, ORBAX_STEP + 4] or \
+            stream != want_stream:
+        raise AssertionError(f"resume of the JAX step: equal {same}, steps "
+                             f"{mgr.all_steps()}, stream {stream}")
+    return {k: runs[k]["seconds"] for k in runs} | {
+        "launches": runs["orbax"]["launches"], "bitwise": same,
+        "stream": stream, "losses": losses[0]}
+
+
+def payload_tensors(tree):
+    """The tensors (and numbers) of a payload's part, in a fixed order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree, key=str) for t in
+                payload_tensors(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in payload_tensors(v)]
+    return [torch.tensor(float(tree))] if isinstance(tree, (int, float)) \
+        else []
+
+
+def orbax_slim_export(restored, d):
+    """export_slim_checkpoint of the restored backbone, read back by the
+    port's reader bit for bit."""
+    variables = {"params": restored.params,
+                 "batch_stats": restored.batch_stats}
+    prefix = os.path.join(d, "slim", "model.ckpt")
+    n, s = timed(lambda: checkpoint.export_slim_checkpoint(
+        variables, prefix, model_scope="resnet_v1_101"))
+    nbytes = sum(os.path.getsize(prefix + x)
+                 for x in (".index", ".data-00000-of-00001"))
+    back = checkpoint.convert_slim_checkpoint(prefix,
+                                              model_scope="resnet_v1_101")
+    reader = tf_checkpoint.CheckpointReader(prefix)
+    checked = 0
+    for coll in ("params", "batch_stats"):
+        want = {p: v for p, v in convert._leaves(variables[coll])
+                if p[0] == "resnet"}
+        got = dict(convert._leaves(back[coll]))
+        if set(got) != set(want) or not all(
+                np.array_equal(got[p], want[p]) for p in want):
+            raise AssertionError(f"slim export: {coll} read back differs")
+        checked += len(want)
+    if checked != n or len(reader.get_variable_to_shape_map()) != n:
+        raise AssertionError(f"slim export: {n} written, {checked} read")
+    log(f"export_slim_checkpoint of the JAX step's backbone: {n} variables, "
+        f"{nbytes / 1e6:.1f} MB in {s:.2f} s, read back bit for bit")
+    return {"variables": n, "bytes": nbytes, "seconds": s}
+
+
+def phase_orbax(card):
+    """Config #1 trained by the JAX package; see the module docstring,
+    phase 13."""
+    t_phase = time.monotonic()
+    names, datas, crops, _ = load_fixtures()
+    with np.load(os.path.join(ORBAX_FIXTURE, "mpii_rank1_224_logits.npz")) \
+            as z:
+        if list(z["names"]) != list(names):
+            raise AssertionError(f"stored logits of {list(z['names'])}")
+        want = z["logits"]
+    out = {"card": card}
+    cfg = config_lib.get_config("mpii_rank1_224", ema_decay=0.999)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_orbax_") as d:
+        jax_dir, port_dir = os.path.join(d, "jax"), os.path.join(d, "port")
+        shutil.copytree(os.path.join(ORBAX_FIXTURE, "mpii_rank1_224",
+                                     str(ORBAX_STEP)),
+                        os.path.join(jax_dir, "checkpoints", str(ORBAX_STEP)))
+        mgr = checkpoint.make_manager(os.path.join(jax_dir, "checkpoints"))
+        (mgr.directory / f"grain_iter_{ORBAX_STEP}_p0.json").write_text(
+            json.dumps({"next_index": ORBAX_GRAIN_BATCHES}))
+        restored, eval_s = timed(lambda: checkpoint.restore_for_eval(mgr))
+        state, _ = train.create_state(cfg, device="cuda")
+        _, restore_s = timed(lambda: checkpoint.restore(mgr, state))
+        torch.cuda.synchronize()
+        port_mgr = checkpoint.make_manager(os.path.join(port_dir,
+                                                        "checkpoints"))
+        checkpoint.save(port_mgr, state)
+        port_mgr.wait_until_finished()
+        del state
+        (port_mgr.directory / f"grain_iter_{ORBAX_STEP}_p0.json").write_text(
+            json.dumps(dict(zip(("epoch", "position"), divmod(
+                ORBAX_GRAIN_BATCHES * 8, N_TRAIN_RECORDS)))))
+        _, port_eval_s = timed(lambda: checkpoint.restore_for_eval(port_mgr))
+        state, _ = train.create_state(cfg, device="cuda")
+        _, port_restore_s = timed(lambda: checkpoint.restore(port_mgr,
+                                                             state))
+        torch.cuda.synchronize()
+        del state
+        out["restore_s"] = {"orbax_eval": eval_s, "orbax_state": restore_s,
+                            "port_eval": port_eval_s,
+                            "port_state": port_restore_s}
+        log(f"the JAX step {ORBAX_STEP} on {card}: restore_for_eval "
+            f"{eval_s:.2f} s, restore into a card state {restore_s:.2f} s "
+            f"(Orbax, read by the port); the same state in the port's "
+            f"format {port_eval_s:.2f} s and {port_restore_s:.2f} s (the "
+            f"fixture's periodic leaves decode faster than trained ones: "
+            f"the Orbax times are not representative)")
+        if restored.step != ORBAX_STEP or restored.ema_params is None:
+            raise AssertionError(f"restore_for_eval: step {restored.step}")
+        out["serving"] = orbax_logits(dataclasses.replace(
+            cfg, workdir=jax_dir), restored, crops["eval"], want)
+        rec = os.path.join(d, "records")
+        os.makedirs(rec)
+        paths = write_records(rec, datas)
+        printed, launches = counted(lambda: eval_cli.main([
+            "--config", "mpii_rank1_224", "--workdir", jax_dir,
+            "--eval_pattern", paths["val"], "--notb"]))
+        line = printed[-1]
+        batches = -(-N_EVAL_RECORDS // cfg.eval_batch_size)
+        expect_launches("eval_cli of the JAX step", launches, batches)
+        if line["step"] != ORBAX_STEP or \
+                line["num_examples"] != N_EVAL_RECORDS:
+            raise AssertionError(f"eval_cli of the JAX step: {line}")
+        log(f"eval_cli of the JAX step: {line}; launches {launches}")
+        out["eval_cli"] = {"result": line, "launches": launches}
+        out["resume"] = orbax_resume(paths, jax_dir, port_dir)
+        out["slim_export"] = orbax_slim_export(restored, d)
+    out["phase_s"] = time.monotonic() - t_phase
+    log(f"phase 13 took {out['phase_s']:.1f} s (workdir removed)")
     return out
 
 
@@ -5542,6 +5796,7 @@ def main():
     config5, gloo2 = meshed["config5"], meshed["gloo2"]["ranks"]
     raw = phase_raw(card)
     from_ar = phase_array_record(card)
+    from_orbax = phase_orbax(card)
 
     def path_launches(name):
         """The launches of ``name`` on each main path, each counted over
@@ -5587,7 +5842,13 @@ def main():
                 "array_record_train_launches":
                     from_ar["clis"]["train_launches"][name],
                 "array_record_eval_launches":
-                    from_ar["clis"]["eval_launches"][name]}
+                    from_ar["clis"]["eval_launches"][name],
+                "orbax_serve_launches":
+                    from_orbax["serving"]["launches"][name],
+                "orbax_eval_launches":
+                    from_orbax["eval_cli"]["launches"][name],
+                "orbax_train_launches":
+                    from_orbax["resume"]["launches"][name]}
 
     kernels = []
     for name in ("saliency_summary", "project_logits", "pool_backward"):
@@ -5640,6 +5901,11 @@ def main():
         k: v for k, v in from_ar.items() if k != "clis"} | {
         "clis": {k: v for k, v in from_ar["clis"].items()
                  if not k.endswith("launches")}}}, default=str))
+    log(json.dumps({"orbax_run": {
+        k: v for k, v in from_orbax.items() if k not in ("serving",
+                                                          "eval_cli")} | {
+        "serving": from_orbax["serving"]["logits_rel"],
+        "eval_cli": from_orbax["eval_cli"]["result"]}}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

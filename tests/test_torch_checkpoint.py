@@ -1,10 +1,11 @@
 """The port's checkpoints: save/restore of a live TrainState (model,
 BN buffers, SGD momentum or AdamW moments, EMA, step) bitwise through
-``torch.load(weights_only=True)``, pruning, atomic saves, the rejection
-of an Orbax step, and keep-best retention in the four cases of
-``tests/test_best_keeper.py``, with ``best_metric_of`` and
-``manager_for_step``; and ``convert.state_dict_to_flax``, the inverse of
-the weight bridge that ``restore_for_eval`` uses.
+``torch.load(weights_only=True)``, pruning, atomic saves, the reading of
+an Orbax step (and the rejection of an uncommitted one), and keep-best
+retention in the four cases of ``tests/test_best_keeper.py``, with
+``best_metric_of`` and ``manager_for_step``; and
+``convert.state_dict_to_flax``, the inverse of the weight bridge that
+``restore_for_eval`` uses.
 
 A small model (a conv, a train-mode batch norm and the pooling head's
 weights) stands in for the ResNet: the format does not depend on it, and
@@ -22,6 +23,7 @@ from torch import nn
 from attentionalpoolingaction_torch import checkpoint as ckpt_lib
 from attentionalpoolingaction_torch import config as config_lib
 from attentionalpoolingaction_torch import convert
+from attentionalpoolingaction_torch import orbax_checkpoint
 from attentionalpoolingaction_torch import train
 from attentionalpoolingaction_torch.models import get_model
 from attentionalpoolingaction_torch.models.resnet import BatchNorm
@@ -179,21 +181,32 @@ def _jax_state(step: int, tag: float) -> JaxTrainState:
 
 
 def test_orbax_step_is_rejected(tmp_path):
-    """A step the JAX package wrote (Orbax) raises a ValueError naming
-    the gap, and nothing of it is read."""
+    """A committed step the JAX package wrote (Orbax) is read
+    (``orbax_checkpoint.py``): listed, its keys and tree read; a tree that
+    is not an ActionModel's raises ``KeyError`` and leaves the live state
+    as it was.  Without its ``_CHECKPOINT_METADATA`` the step is rejected:
+    not listed, and a load names it uncommitted."""
     mgr = jax_ckpt.make_manager(str(tmp_path / "checkpoints"))
     jax_ckpt.save(mgr, _jax_state(4, 1.0))
     mgr.wait_until_finished()
     port = ckpt_lib.make_manager(tmp_path / "checkpoints")
     assert port.latest_step() == 4
-    with pytest.raises(ValueError, match="Orbax"):
+    assert ckpt_lib.saved_tree_keys(port) == {"step", "model", "optimizer"}
+    tree = orbax_checkpoint.read_tree(port.step_dir(4))
+    assert int(tree["step"]) == 4
+    assert np.array_equal(tree["params"]["w"], np.full(3, 1.0, np.float32))
+    with pytest.raises(KeyError, match="params/w"):
         ckpt_lib.restore_for_eval(port)
     state, _ = small_state(0)
     before = {k: v.clone() for k, v in state.model.state_dict().items()}
-    with pytest.raises(ValueError, match="Orbax"):
+    with pytest.raises(KeyError, match="params/w"):
         ckpt_lib.restore(port, state)
     assert all(torch.equal(before[k], v)
                for k, v in state.model.state_dict().items())
+    (port.step_dir(4) / orbax_checkpoint.COMMIT_FILE).unlink()
+    assert port.all_steps() == []
+    with pytest.raises(ValueError, match="not committed"):
+        port.load(4, "cpu")
     (tmp_path / "checkpoints" / "9").mkdir()
     with pytest.raises(ValueError, match="not a checkpoint of the port"):
         ckpt_lib.restore_for_eval(port, step=9)

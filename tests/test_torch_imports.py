@@ -1,5 +1,5 @@
 """The port imports nothing of JAX or of the JAX package, nor TensorFlow,
-Orbax, Grain, absl, CLU, TensorBoard, ArrayRecord or PIL (the card's
+Orbax, tensorstore, Grain, absl, CLU, TensorBoard, ArrayRecord or PIL (the card's
 machine has none of them): a static scan of every module of
 attentionalpoolingaction_torch/ and of chip_smoke.py.  Static, because an
 interpreter may have JAX loaded already.  OpenCV is imported in five
@@ -21,8 +21,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "attentionalpoolingaction_tpu",
-             "tensorflow", "orbax", "grain", "absl", "clu", "tensorboard",
-             "array_record", "PIL"}
+             "tensorflow", "orbax", "tensorstore", "grain", "absl", "clu",
+             "tensorboard", "array_record", "PIL"}
 # (module, function) pairs that may import cv2, and nothing else may
 CV2_ALLOWED = {("attentionalpoolingaction_torch/data/jpeg.py", "_decode_cpu"),
                ("attentionalpoolingaction_torch/data/records.py",
@@ -86,7 +86,8 @@ def test_no_jax_imports(path):
 def test_scan_sees_every_module():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for mod in ("config", "convert", "serving", "train", "precision",
-                "checkpoint", "tf_checkpoint", "evaluate", "ops/metrics",
+                "checkpoint", "tf_checkpoint", "orbax_checkpoint",
+                "evaluate", "ops/metrics",
                 "ops/attn_pool", "ops/_build",
                 "ops/attn_pool_cuda", "ops/heatmap", "models/resnet",
                 "models/heads", "models/action_model", "models/factory",
@@ -124,6 +125,7 @@ def test_card_path_imports_without_host_libraries():
         "for m in ('cv2', 'tensorflow', 'grain', 'jax', 'PIL'):\n"
         "    sys.modules[m] = None\n"
         "import attentionalpoolingaction_torch.train_cli\n"
+        "import attentionalpoolingaction_torch.orbax_checkpoint\n"
         "import attentionalpoolingaction_torch.eval_cli\n"
         "import attentionalpoolingaction_torch.data.grain_pipeline\n"
         "import attentionalpoolingaction_torch.data.pipeline\n"
