@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from attentionalpoolingaction_torch.ops import _build
+from attentionalpoolingaction_torch.utils import profiling
 
 __all__ = ["LIBRARY", "YccBatchPlan", "decode", "decode_calls",
            "decode_count", "decode_planes", "decoder_count", "frame_size",
@@ -460,16 +461,20 @@ def _decode_cuda(datas: Sequence[bytes], device: torch.device,
 def decode(datas: Sequence[bytes], device) -> list[torch.Tensor]:
     """RGB uint8 (H, W, 3) tensors of the JPEG streams ``datas`` on
     ``device``: nvJPEG on a CUDA device, OpenCV on the CPU, each with
-    the stream's EXIF orientation applied."""
+    the stream's EXIF orientation applied.  A traced call is the span
+    ``jpeg.decode`` (nvJPEG's host work and the colour kernel's launch on a
+    card), with its ``images``."""
     device = torch.device(device)
-    orientations = []
-    for i, data in enumerate(datas):
-        try:
-            orientations.append(_header(data)[2])
-        except ValueError as e:
-            raise ValueError(f"JPEG {i}: {e}") from None
-    if device.type == "cpu":
-        return [_decode_cpu(d, i) for i, d in enumerate(datas)]
-    if device.type != "cuda":
-        raise ValueError(f"JPEG decode runs on cuda or cpu, not {device}")
-    return _decode_cuda(datas, device, orientations)
+    with profiling.span("jpeg.decode", images=len(datas)):
+        orientations = []
+        for i, data in enumerate(datas):
+            try:
+                orientations.append(_header(data)[2])
+            except ValueError as e:
+                raise ValueError(f"JPEG {i}: {e}") from None
+        if device.type == "cpu":
+            return [_decode_cpu(d, i) for i, d in enumerate(datas)]
+        if device.type != "cuda":
+            raise ValueError(f"JPEG decode runs on cuda or cpu, not "
+                             f"{device}")
+        return _decode_cuda(datas, device, orientations)

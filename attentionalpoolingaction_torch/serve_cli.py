@@ -34,6 +34,12 @@ them however many connections come and go.  The pool's decodes and the
 batcher's forwards share the thread-default CUDA stream, so a crop is
 ready in stream order before any forward that reads it.
 
+Traced (``utils/profiling.py``), a POST is the span ``serve.request`` with
+a ``request`` id; under it, each image's wait for a decoding thread
+(``serve.decode_wait``), its decode and crop there (``serve.preprocess``,
+holding ``jpeg.decode``) and its wait in the batcher's queue
+(``serve.queue_wait``).
+
 Repairs of the JAX server: a connection over ``--max_connections`` is
 answered with its 503 and drained for at most ``drain_seconds`` or
 ``DRAIN_BYTES``, whichever comes first; a client that stalls mid-body is
@@ -53,6 +59,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import itertools
 import json
 import logging
 import signal
@@ -67,6 +74,7 @@ from attentionalpoolingaction_torch import checkpoint as ckpt_lib
 from attentionalpoolingaction_torch import config as config_lib
 from attentionalpoolingaction_torch import serving
 from attentionalpoolingaction_torch.train_cli import add_bool_flag
+from attentionalpoolingaction_torch.utils import profiling
 
 log = logging.getLogger(__name__)
 
@@ -95,6 +103,18 @@ def make_server(predictor: serving.BucketedPredictor, host: str, port: int,
                               thread_name_prefix="decode")
     conn_lock = threading.Lock()
     conn_count = [0]
+    request_ids = itertools.count()
+
+    def preprocess(body: bytes, parent, t_submit: int):
+        profiling.record_span("serve.decode_wait", t_submit, time.time_ns(),
+                              parent=parent)
+        with profiling.span("serve.preprocess", parent=parent):
+            return predictor.preprocess(body)
+
+    def decode(body: bytes):
+        """The future of a request image's crop, made on the pool."""
+        return pool.submit(preprocess, body, profiling.current(),
+                           time.time_ns())
 
     def drain(sock: socket.socket) -> None:
         """Read what an over-cap client sent, so that our close sends FIN
@@ -195,6 +215,10 @@ def make_server(predictor: serving.BucketedPredictor, host: str, port: int,
                           else "serving_request_errors_total")
 
         def do_POST(self):
+            with profiling.span("serve.request", request=next(request_ids)):
+                self._post()
+
+        def _post(self):
             t_start = time.monotonic()
             observed = False
 
@@ -225,7 +249,7 @@ def make_server(predictor: serving.BucketedPredictor, host: str, port: int,
                     return
                 if self.path == "/predict":
                     try:
-                        img = pool.submit(predictor.preprocess, body).result()
+                        img = decode(body).result()
                     except Exception as exc:
                         observe_once()
                         stats.inc("serving_request_errors_total")
@@ -264,8 +288,7 @@ def make_server(predictor: serving.BucketedPredictor, host: str, port: int,
                         return
                     # each item decodes on its own: a corrupt one errors
                     # its own slot only and is never enqueued
-                    decodes = [pool.submit(predictor.preprocess, b)
-                               for b in blobs]
+                    decodes = [decode(b) for b in blobs]
                     results: list = [None] * len(blobs)
                     imgs, slots = [], []
                     for i, fut in enumerate(decodes):

@@ -57,6 +57,7 @@ from attentionalpoolingaction_torch.device import resolve_device
 from attentionalpoolingaction_torch.models import inference as inf
 from attentionalpoolingaction_torch.ops import attn_pool_cuda as apc
 from attentionalpoolingaction_torch.train import build_model, normalize_images
+from attentionalpoolingaction_torch.utils import profiling
 
 DEFAULT_BUCKETS = (1, 8, 32, 128)
 NO_CLIP_FORWARD = ("this predictor has no clip forward (the artifact was "
@@ -442,7 +443,8 @@ class BucketedPredictor:
         (normalized on device); float32 = already mean-subtracted.  A
         numpy array or a tensor (a stack of :meth:`preprocess` crops, on
         the device: padded there).  N may exceed the largest bucket; it is
-        chunked."""
+        chunked, and a traced chunk's forward is the span
+        ``serve.dispatch``."""
         out = []
         cap = self.buckets[-1]
         # snapshot once: one request sees ONE set of weights, even if a
@@ -459,10 +461,11 @@ class BucketedPredictor:
             else:
                 padded = np.concatenate([chunk, np.zeros(
                     (b - len(chunk),) + chunk.shape[1:], chunk.dtype)])
-            t0 = time.monotonic()
-            logits = self._fwd(weights, padded)[:len(chunk)]
-            self.stats.observe_dispatch(len(chunk), len(padded),
-                                        time.monotonic() - t0)
+            with profiling.span("serve.dispatch"):
+                t0 = time.monotonic()
+                logits = self._fwd(weights, padded)[:len(chunk)]
+                self.stats.observe_dispatch(len(chunk), len(padded),
+                                            time.monotonic() - t0)
             out.append(self._probs(logits))
         return np.concatenate(out)
 
@@ -676,6 +679,12 @@ class DynamicBatcher:
     full, submit() raises :class:`Overloaded` immediately (counted as
     ``serving_rejected_total``).  The live depth is exported as the
     ``serving_queue_depth`` gauge.
+
+    Traced (``utils/profiling.py``), each item's time in the queue, from
+    its ``put`` to the hand-off of its batch to ``predict_fn``, is the span
+    ``serve.queue_wait`` under the span that submitted it, and the call of
+    ``predict_fn`` the span ``serve.batch`` with the ``requests`` ids of
+    those spans.
     """
 
     def __init__(self, predict_fn, *, max_batch: int = 32,
@@ -727,9 +736,10 @@ class DynamicBatcher:
                     f"({self._q.qsize()}/{self.max_queue} pending)"
                     + ("; batch exceeds total queue capacity — split it"
                        if len(items) > self.max_queue else ""))
+            parent, t_put = profiling.current(), time.time_ns()
             for item in items:
                 fut = Future()
-                self._q.put((item, fut))
+                self._q.put((item, fut, parent, t_put))
                 futs.append(fut)
             self.stats.set_gauge("serving_queue_depth", self._q.qsize())
         return futs
@@ -753,7 +763,7 @@ class DynamicBatcher:
         with self._submit_lock:   # no submit can interleave with the drain
             while True:
                 try:
-                    _, fut = self._q.get_nowait()
+                    _, fut, _, _ = self._q.get_nowait()
                 except queue.Empty:
                     break
                 if not fut.done():
@@ -780,7 +790,14 @@ class DynamicBatcher:
             self.stats.inc("serving_coalesced_batches_total")
             self.stats.inc("serving_coalesced_items_total", len(items))
             try:
-                results = self._predict(items)
+                with profiling.span("serve.batch", requests=[
+                        b[2].get("request") for b in batch
+                        if b[2] is not None]):
+                    t_hand = time.time_ns()
+                    for _, _, parent, t_put in batch:
+                        profiling.record_span("serve.queue_wait", t_put,
+                                              t_hand, parent=parent)
+                    results = self._predict(items)
                 # a short/long result list would otherwise leave futures
                 # unresolved forever — fail the whole batch loudly instead
                 if len(results) != len(items):

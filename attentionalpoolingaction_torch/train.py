@@ -95,6 +95,7 @@ from attentionalpoolingaction_torch.ops import heatmap as hm
 from attentionalpoolingaction_torch.parallel import mesh as mesh_lib
 from attentionalpoolingaction_torch.parallel import multihost
 from attentionalpoolingaction_torch.parallel.zero1 import Zero1Optimizer
+from attentionalpoolingaction_torch.utils import profiling
 
 __all__ = [
     "TrainState", "apply_gradients", "batch_to_device", "build_model",
@@ -612,8 +613,10 @@ def make_train_step(spec: DatasetSpec, cfg: config_lib.TrainConfig,
         for i in range(accum):
             mb = ({k: v[i * m:(i + 1) * m] for k, v in batch.items()}
                   if accum > 1 else batch)
-            total, metrics = loss_fn(state.model, mb, True)
-            total.backward()
+            with profiling.span("train.forward"):
+                total, metrics = loss_fn(state.model, mb, True)
+            with profiling.span("train.backward"):
+                total.backward()
             micro.append(metrics)
         if accum > 1:
             torch._foreach_div_([p.grad for p in state.model.parameters()
@@ -632,7 +635,8 @@ def make_train_step(spec: DatasetSpec, cfg: config_lib.TrainConfig,
             shares = torch.stack([metrics[k] for k in keys])
             torch.distributed.all_reduce(shares, group=group)
             metrics = dict(zip(keys, shares.unbind()))
-        metrics["grad_norm"] = apply_gradients(state, cfg, schedule)
+        with profiling.span("train.optimizer"):
+            metrics["grad_norm"] = apply_gradients(state, cfg, schedule)
         return state, metrics
 
     return step_fn
@@ -723,7 +727,11 @@ def train(cfg: config_lib.TrainConfig, *, train_iter: Iterable | None = None,
     1 each feeds that many steps.  Every ``cfg.log_every`` steps and at
     the last the metrics come to the host, are logged and join the
     returned history; ``hooks`` are called ``hook(step, state, metrics)``
-    after every step.  Returns ``(state, history)``.
+    after every step.  Returns ``(state, history)``.  Traced
+    (``utils/profiling.py``), each iteration is the span ``train.step``
+    holding ``train.input`` (the batch's hand-off and copy, its decode
+    included), ``train.forward``, ``train.backward`` and
+    ``train.optimizer``.
 
     With a ``checkpoint_manager`` the run resumes from its latest step
     (the learning rate keyed on the restored step), and saves every
@@ -803,33 +811,36 @@ def train(cfg: config_lib.TrainConfig, *, train_iter: Iterable | None = None,
     pending_flag = flag_reduce.dispatch(False)
     try:
         for _ in range(max(num_steps - state.step, 0)):
-            batch = batch_to_device(next(batches), dev)
-            state, metrics = step_fn(state, batch)
-            step = state.step
-            if step % cfg.log_every == 0 or step == num_steps:
-                metrics = {k: float(v) for k, v in metrics.items()}
-                log.info("step %d %s (%.2f s)", step, metrics,
-                         time.time() - t0)
-                history.append({"step": step, **metrics})
-            for hook in hooks:
-                hook(step, state, metrics)
-            # read the stop AFTER the hooks, so that a stop raised during
-            # this step (signal or hook) checkpoints THIS step; several
-            # processes agree on last step's flags instead
-            if world == 1:
-                stopping = stop_event.is_set()
-            else:
-                stopping = flag_reduce.read(pending_flag)
-                pending_flag = flag_reduce.dispatch(stop_event.is_set())
-            if checkpoint_manager is not None and (
-                    step % cfg.checkpoint_every == 0 or step == num_steps
-                    or stopping):
-                save_checkpoint(step)
-            if stopping:
-                log.warning(
-                    "stop requested (SIGTERM/preemption): checkpointed at "
-                    "step %d and exiting cleanly", step)
-                break
+            with profiling.span("train.step", step=state.step + 1):
+                with profiling.span("train.input"):
+                    batch = batch_to_device(next(batches), dev)
+                state, metrics = step_fn(state, batch)
+                step = state.step
+                if step % cfg.log_every == 0 or step == num_steps:
+                    metrics = {k: float(v) for k, v in metrics.items()}
+                    log.info("step %d %s (%.2f s)", step, metrics,
+                             time.time() - t0)
+                    history.append({"step": step, **metrics})
+                for hook in hooks:
+                    hook(step, state, metrics)
+                # read the stop AFTER the hooks, so that a stop raised
+                # during this step (signal or hook) checkpoints THIS step;
+                # several processes agree on last step's flags instead
+                if world == 1:
+                    stopping = stop_event.is_set()
+                else:
+                    stopping = flag_reduce.read(pending_flag)
+                    pending_flag = flag_reduce.dispatch(
+                        stop_event.is_set())
+                if checkpoint_manager is not None and (
+                        step % cfg.checkpoint_every == 0
+                        or step == num_steps or stopping):
+                    save_checkpoint(step)
+                if stopping:
+                    log.warning(
+                        "stop requested (SIGTERM/preemption): checkpointed "
+                        "at step %d and exiting cleanly", step)
+                    break
         if checkpoint_manager is not None:
             # the last save commits (or raises) before the run returns
             checkpoint_manager.wait_until_finished()
