@@ -72,6 +72,10 @@ launch_counts = {"saliency_summary": 0, "project_logits": 0,
                  "pool_backward": 0}
 # per thread: where the wrappers count while a CUDA graph is captured
 _recording = threading.local()
+# per CUDA stream (its handle): where launches on it count, from any
+# thread (autograd runs a backward on a thread of its own, on the stream
+# of its forward)
+_recording_streams: dict[int, dict] = {}
 
 
 def reset_launch_counts() -> None:
@@ -82,6 +86,9 @@ def reset_launch_counts() -> None:
 
 def _count(name: str) -> None:
     counts = getattr(_recording, "counts", None)
+    if counts is None and _recording_streams:
+        counts = _recording_streams.get(
+            torch.cuda.current_stream().cuda_stream)
     if counts is not None:
         counts[name] += 1
         return
@@ -90,18 +97,23 @@ def _count(name: str) -> None:
 
 
 @contextlib.contextmanager
-def recording_launches():
-    """The launches this thread's wrappers make inside the block, counted
-    into the dict it yields and not into :data:`launch_counts`: a CUDA
-    graph capture records launches and runs none.  Each replay of the
-    graph adds them with :func:`add_launches`."""
+def recording_launches(stream: torch.cuda.Stream | None = None):
+    """The launches this thread's wrappers make inside the block, and with
+    ``stream`` those any thread makes on that stream, counted into the
+    dict it yields and not into :data:`launch_counts`: a CUDA graph
+    capture records launches and runs none.  Each replay of the graph
+    adds them with :func:`add_launches`."""
     counts = dict.fromkeys(launch_counts, 0)
     prev = getattr(_recording, "counts", None)
     _recording.counts = counts
+    if stream is not None:
+        _recording_streams[stream.cuda_stream] = counts
     try:
         yield counts
     finally:
         _recording.counts = prev
+        if stream is not None:
+            del _recording_streams[stream.cuda_stream]
 
 
 def add_launches(counts: dict) -> None:

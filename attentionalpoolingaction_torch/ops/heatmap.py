@@ -6,6 +6,8 @@ vmaps a per-example function.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -16,6 +18,14 @@ import torch
 MPII_NUM_JOINTS = 16
 MPII_FLIP_PERM = np.array(
     [5, 4, 3, 2, 1, 0, 6, 7, 8, 9, 15, 14, 13, 12, 11, 10], dtype=np.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _index_on(index: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """``index`` as a long tensor on ``device``, made once: a copy from the
+    host at each call would block, and is not allowed while a CUDA graph
+    captures the train step (whose eager rehearsals make it first)."""
+    return torch.tensor(index, dtype=torch.long, device=device)
 
 
 def render_gaussian_heatmaps(keypoints, visibility, height: int, width: int,
@@ -59,7 +69,7 @@ def transform_keypoints(keypoints, visibility, *, scale_y, scale_x,
     flip = per_example(flip).to(torch.bool)                  # (..., 1)
     x = torch.where(flip, (width - 1) - x, x)
     kps = torch.stack([y, x], dim=-1)
-    perm = torch.as_tensor(flip_perm, dtype=torch.long, device=dev)
+    perm = _index_on(tuple(int(i) for i in flip_perm), dev)
     kps = torch.where(flip[..., None], kps[..., perm, :], kps)
     vis = torch.where(flip, visibility[..., perm], visibility)
     return kps, vis

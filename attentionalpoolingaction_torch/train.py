@@ -47,6 +47,15 @@ one device, as the JAX package does; otherwise it trains alone.
 With ``remat_units`` each bottleneck of the backbone is rematerialized
 in the backward (``models/resnet.py``), its batch norms moving their
 running statistics once a step.
+
+On one card the step runs as a CUDA graph (:class:`StepGraphs`): the
+forward, the backward, the clip, the update and the EMA are captured at
+the first step of a batch shape (and backend settings) and replayed
+after, the learning rate and the EMA decay written into device scalars
+each step.  A mesh or process group, gradient accumulation,
+``remat_units``, an optimizer the graph cannot run
+(:func:`graph_blockers`) or a key past ``MAX_STEP_GRAPHS`` runs the eager
+step, as the CPU does.
 """
 
 from __future__ import annotations
@@ -91,6 +100,7 @@ from attentionalpoolingaction_torch.models.resnet import (
     BatchNorm,
     feature_size,
 )
+from attentionalpoolingaction_torch.ops import attn_pool_cuda as apc
 from attentionalpoolingaction_torch.ops import heatmap as hm
 from attentionalpoolingaction_torch.parallel import mesh as mesh_lib
 from attentionalpoolingaction_torch.parallel import multihost
@@ -98,10 +108,11 @@ from attentionalpoolingaction_torch.parallel.zero1 import Zero1Optimizer
 from attentionalpoolingaction_torch.utils import profiling
 
 __all__ = [
-    "TrainState", "apply_gradients", "batch_to_device", "build_model",
-    "classification_loss", "create_state", "decay_mask", "feature_size",
-    "make_learning_rate", "make_loss_fn", "make_optimizer",
-    "make_train_step", "normalize_images", "pose_targets", "train",
+    "MAX_STEP_GRAPHS", "StepGraphs", "TrainState", "apply_gradients",
+    "batch_to_device", "build_model", "classification_loss", "create_state",
+    "decay_mask", "feature_size", "graph_blockers", "make_learning_rate",
+    "make_loss_fn", "make_optimizer", "make_train_step", "normalize_images",
+    "pose_targets", "train",
 ]
 
 log = logging.getLogger(__name__)
@@ -527,26 +538,14 @@ def apply_gradients(state: TrainState, cfg: config_lib.TrainConfig,
     ``schedule(state.step)``, then the EMA.  Returns the global norm of the
     gradients before the clip, on the device."""
     model, opt = state.model, state.optimizer
-    params = list(model.parameters())
-    for p in params:                # a parameter the loss did not reach
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    grads = [p.grad for p in params]
-    norm = _global_norm(state, grads)
-    if cfg.grad_clip_norm:
-        torch._foreach_mul_(
-            grads, torch.clamp(cfg.grad_clip_norm / norm, max=1.0))
+    norm = _clip_gradients(state, cfg)
     lr = schedule(state.step)
     for group in opt.param_groups:
         group["lr"] = lr
     opt.step()
     state.step += 1
     if state.ema_params is not None:
-        # TF ExponentialMovingAverage(num_updates=step): the decay is
-        # min(decay, (1+t)/(10+t)), in float32 as the JAX package
-        t = np.float32(state.step)
-        d = float(min(np.float32(cfg.ema_decay),
-                      (np.float32(1) + t) / (np.float32(10) + t)))
+        d = _ema_decay(cfg, state.step)
         named = dict(model.named_parameters())
         ema = list(state.ema_params.values())
         torch._foreach_mul_(ema, d)
@@ -554,6 +553,32 @@ def apply_gradients(state: TrainState, cfg: config_lib.TrainConfig,
             ema, [named[n].detach() for n in state.ema_params],
             alpha=1.0 - d)
     return norm
+
+
+def _clip_gradients(state: TrainState, cfg: config_lib.TrainConfig
+                    ) -> torch.Tensor:
+    """Clip the gradients in the parameters' ``.grad`` to the global norm
+    ``cfg.grad_clip_norm``, in place, a parameter the loss did not reach
+    taking zeros; returns the norm before the clip, on the device."""
+    params = list(state.model.parameters())
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in params]
+    norm = _global_norm(state, grads)
+    if cfg.grad_clip_norm:
+        torch._foreach_mul_(
+            grads, torch.clamp(cfg.grad_clip_norm / norm, max=1.0))
+    return norm
+
+
+def _ema_decay(cfg: config_lib.TrainConfig, step: int) -> float:
+    """The EMA's decay after update ``step``: TF ExponentialMovingAverage
+    (num_updates=step), min(decay, (1+t)/(10+t)), in float32 as the JAX
+    package."""
+    t = np.float32(step)
+    return float(min(np.float32(cfg.ema_decay),
+                     (np.float32(1) + t) / (np.float32(10) + t)))
 
 
 def _global_norm(state: TrainState, grads) -> torch.Tensor:
@@ -573,6 +598,267 @@ def _global_norm(state: TrainState, grads) -> torch.Tensor:
     return (whole + shard).sqrt()
 
 
+# -- the step as a CUDA graph -------------------------------------------------
+
+# keys (a batch's shapes and dtypes, the backend settings) a step keeps a
+# graph for; a step of a further key is eager
+MAX_STEP_GRAPHS = 4
+# eager steps on the capture's stream before it, undone after them
+_REHEARSALS = 3
+
+
+def _capturable(opt: torch.optim.Optimizer) -> bool:
+    """Whether a graph can make the update of ``opt``: SGD with momentum as
+    :func:`make_optimizer` makes it (dampening 0, no Nesterov, not
+    maximizing, not fused), which the graph runs as :func:`_sgd_update`.
+    AdamW steps eagerly."""
+    return type(opt) is torch.optim.SGD and all(
+        g["momentum"] > 0 and g["dampening"] == 0 and not g["nesterov"]
+        and not g["maximize"] and not g.get("fused")
+        for g in opt.param_groups)
+
+
+def graph_blockers(state: TrainState, cfg: config_lib.TrainConfig,
+                   mesh=None) -> list[str]:
+    """Why the step of ``state`` cannot run as a CUDA graph, empty where it
+    can: ``device`` (the state is not on a card), ``mesh`` (a mesh or a
+    process group: the step's collectives run between its phases),
+    ``grad_accum_steps`` (more than one), ``remat_units`` and
+    ``optimizer`` (not one :func:`_capturable` takes)."""
+    out = []
+    if next(state.model.parameters()).device.type != "cuda":
+        out.append("device")
+    if mesh is not None or state.mesh is not None or (
+            torch.distributed.is_available()
+            and torch.distributed.is_initialized()):
+        out.append("mesh")
+    if max(int(cfg.grad_accum_steps or 1), 1) > 1:
+        out.append("grad_accum_steps")
+    if cfg.remat_units:
+        out.append("remat_units")
+    if not _capturable(state.optimizer):
+        out.append("optimizer")
+    return out
+
+
+def _graph_key(batch: Mapping[str, torch.Tensor]) -> tuple:
+    """The batch's shapes and dtypes, and the backend settings a capture
+    keeps in force (TF32, deterministic algorithms) where the eager step
+    reads them at each call."""
+    return (tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(
+        batch.items())), torch.backends.cudnn.allow_tf32,
+        torch.backends.cuda.matmul.allow_tf32,
+        torch.backends.cudnn.deterministic,
+        torch.are_deterministic_algorithms_enabled())
+
+
+def _sgd_update(opt: torch.optim.SGD, lr: torch.Tensor) -> None:
+    """torch's foreach SGD step with momentum and dampening 0, at ``lr``, a
+    device scalar, bit for bit: the decay out of place, the momentum in
+    place, then each parameter moves by one fused multiply-add, as torch's
+    ``alpha=-lr`` moves it."""
+    neg = -lr
+    for g in opt.param_groups:
+        params = g["params"]
+        if not params:
+            continue
+        grads = [p.grad for p in params]
+        bufs = [opt.state[p]["momentum_buffer"] for p in params]
+        if g["weight_decay"]:
+            grads = torch._foreach_add(grads, params, alpha=g["weight_decay"])
+        torch._foreach_mul_(bufs, g["momentum"])
+        torch._foreach_add_(bufs, grads)
+        torch._foreach_addcmul_(params, bufs,
+                                [neg.expand_as(p) for p in params])
+
+
+class _StepGraph:
+    """One step captured as a CUDA graph for one key: the static
+    inputs it reads the batch from, the learning rate and the EMA decay as
+    device scalars, and the static outputs (the losses and ``grad_norm``).
+
+    The graph reads and writes the parameters, batch norm's buffers, the
+    optimizer's state and the EMA in place.  A load copies into the first
+    two; ``optimizer.load_state_dict`` replaces the optimizer's state and a
+    resume may replace the EMA's dict, and :meth:`stale` then says the
+    graph reads tensors that are no longer the state's.
+
+    Before the capture the step runs eagerly on the capture's stream
+    (cuBLAS and cuDNN set up there, the kernels built), and everything it
+    moved is put back bit for bit: the parameters, the buffers, the
+    momentum and the EMA (``state.step`` is not moved).  A momentum buffer
+    no step has made yet is made first as zeros, the same first step with
+    dampening 0.  The launches of those rehearsals are not counted
+    (``ops/attn_pool_cuda.py``); each replay counts those the capture
+    recorded."""
+
+    def __init__(self, state: TrainState, batch, loss_fn, schedule,
+                 cfg: config_lib.TrainConfig):
+        self.model, self.opt = state.model, state.optimizer
+        self.opt_state, self.ema = self.opt.state, state.ema_params
+        self.cfg, self.loss_fn, self.schedule = cfg, loss_fn, schedule
+        dev = next(self.model.parameters()).device
+        self.inputs = {k: torch.empty_like(v, device=dev)
+                       for k, v in batch.items()}
+        self.lr = torch.zeros((), device=dev)
+        self.decay = torch.zeros((), device=dev)
+        self.params = list(self.model.parameters())
+        for g in self.opt.param_groups:
+            for p in g["params"]:
+                st = self.opt.state[p]
+                if st.get("momentum_buffer") is None:
+                    st["momentum_buffer"] = torch.zeros_like(p)
+        held = self._written()
+        saved = [t.detach().clone() for t in held]
+        lrs = [g["lr"] for g in self.opt.param_groups]
+        self._load(batch, state.step)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        try:
+            with torch.cuda.stream(side), apc.recording_launches(side):
+                for _ in range(_REHEARSALS):
+                    self._body(state)
+        finally:
+            torch.cuda.current_stream(dev).wait_stream(side)
+            with torch.no_grad():
+                torch._foreach_copy_(held, saved)
+            for g, lr in zip(self.opt.param_groups, lrs):
+                g["lr"] = lr
+            del saved
+        self.graph = torch.cuda.CUDAGraph()
+        with apc.recording_launches(side) as self.launches, \
+                torch.cuda.graph(self.graph, stream=side,
+                                 capture_error_mode="thread_local"):
+            self.outputs = self._body(state)
+        self.grads = [p.grad for p in self.params]
+        self.written = self._written()
+
+    def _written(self) -> list[torch.Tensor]:
+        """What a step writes in place: the parameters, the buffers, the
+        optimizer's state and the EMA."""
+        opt_tensors = [v for st in self.opt.state.values()
+                       for v in st.values() if isinstance(v, torch.Tensor)]
+        return (self.params + list(self.model.buffers()) + opt_tensors
+                + list((self.ema or {}).values()))
+
+    def _load(self, batch, step: int) -> None:
+        """Step ``step + 1``'s batch, learning rate (also into the
+        optimizer's groups, as the eager step sets it) and EMA decay."""
+        for k, t in self.inputs.items():
+            t.copy_(batch[k])
+        lr = self.schedule(step)
+        self.lr.fill_(lr)
+        for g in self.opt.param_groups:
+            g["lr"] = lr
+        if self.ema is not None:
+            self.decay.fill_(_ema_decay(self.cfg, step + 1))
+
+    def _body(self, state: TrainState) -> dict:
+        self.opt.zero_grad(set_to_none=True)
+        total, metrics = self.loss_fn(self.model, self.inputs, True)
+        total.backward()
+        metrics["grad_norm"] = _clip_gradients(state, self.cfg)
+        with torch.no_grad():
+            _sgd_update(self.opt, self.lr)
+            if self.ema is not None:
+                named = dict(self.model.named_parameters())
+                ema = list(self.ema.values())
+                torch._foreach_mul_(ema, self.decay)
+                keep = 1.0 - self.decay
+                torch._foreach_addcmul_(
+                    ema, [named[n].detach() for n in self.ema],
+                    [keep.expand_as(t) for t in ema])
+        return metrics
+
+    def stale(self, state: TrainState) -> bool:
+        return (state.model is not self.model
+                or state.optimizer is not self.opt
+                or self.opt.state is not self.opt_state
+                or state.ema_params is not self.ema)
+
+    def replay(self, state: TrainState, batch) -> dict:
+        """One step: the batch into the static inputs, this step's learning
+        rate and EMA decay into their scalars, the replay, and the
+        metrics, copied out of the static outputs (the next replay
+        overwrites those)."""
+        self._load(batch, state.step)
+        with profiling.span("train.graph_launch"):
+            self.graph.replay()
+        state.step += 1
+        metrics = {k: v.clone() for k, v in self.outputs.items()}
+        # in-place writes of a replay move no version counter, where the
+        # eager step's do (the head's copy of attn_w is keyed on it)
+        torch.autograd.graph.increment_version(self.written)
+        for p, g in zip(self.params, self.grads):
+            if p.grad is not g:
+                p.grad = g
+        apc.add_launches(self.launches)
+        return metrics
+
+
+class StepGraphs:
+    """The single-card train step as CUDA graphs, one a key (the batch's
+    shapes and dtypes, the backend settings): captured at the first step
+    of a key
+    (:class:`_StepGraph`) and replayed at every step of it, a few host
+    calls where the eager step launches ~2,000 kernels.  A key past
+    ``MAX_STEP_GRAPHS`` takes the eager step; a graph whose state was
+    replaced by a restore is captured again.  ``captures`` and
+    ``replays`` count them.  Traced, a capture is the span
+    ``train.capture`` and a replay ``train.replay``, the graph's launch
+    in it ``train.graph_launch``."""
+
+    def __init__(self, cfg: config_lib.TrainConfig, loss_fn, schedule,
+                 mesh=None):
+        self.cfg, self.loss_fn, self.schedule = cfg, loss_fn, schedule
+        self.mesh = mesh
+        self.graphs: dict[tuple, _StepGraph] = {}
+        self.captures = self.replays = 0
+        self._said = None
+
+    def eager_reasons(self, state: TrainState, batch) -> list[str]:
+        """:func:`graph_blockers`, and ``shapes`` for a new key past
+        ``MAX_STEP_GRAPHS``; empty where the step replays a graph."""
+        out = graph_blockers(state, self.cfg, self.mesh)
+        if (_graph_key(batch) not in self.graphs
+                and len(self.graphs) >= MAX_STEP_GRAPHS):
+            out.append("shapes")
+        if out != self._said:
+            log.info("train step: %s", f"eager ({', '.join(out)})" if out
+                     else "CUDA graph replays")
+            self._said = out
+        return out
+
+    def capture(self, state: TrainState, batch) -> _StepGraph:
+        """The graph of ``batch``'s key for ``state``, captured now unless
+        it is there and reads ``state``'s tensors; ``state`` is left as it
+        was (:class:`_StepGraph`)."""
+        key = _graph_key(batch)
+        graph = self.graphs.get(key)
+        if graph is not None and not graph.stale(state):
+            return graph
+        # a stale graph's memory goes back before the capture
+        self.graphs.pop(key, None)
+        graph = None
+        t0 = time.perf_counter()
+        with profiling.span("train.capture"):
+            graph = _StepGraph(state, batch, self.loss_fn, self.schedule,
+                               self.cfg)
+        self.graphs[key] = graph
+        self.captures += 1
+        log.info("step %d: captured the step as a CUDA graph for %s in "
+                 "%.2f s; replays from this step on", state.step + 1, key,
+                 time.perf_counter() - t0)
+        return graph
+
+    def step(self, state: TrainState, batch) -> dict:
+        graph = self.capture(state, batch)
+        with profiling.span("train.replay"):
+            metrics = graph.replay(state, batch)
+        self.replays += 1
+        return metrics
+
+
 def make_train_step(spec: DatasetSpec, cfg: config_lib.TrainConfig,
                     mesh=None):
     """``step_fn(state, batch) -> (state, metrics)``: one update of
@@ -582,31 +868,26 @@ def make_train_step(spec: DatasetSpec, cfg: config_lib.TrainConfig,
     microbatches, run in turn: batch norm's running statistics chain
     through them, and the gradients and metrics are their means.  Metrics
     (the losses and ``grad_norm``, the global norm before the clip) stay
-    on the device.
+    on the device, each step's its own tensors.
 
     With a ``mesh`` (and a state made for it, ``create_state(mesh=)``) the
     batch is this rank's rows: the losses divide by global counts, the
     gradients are all-reduced over the data axis before the clip, and the
-    metrics are the global batch's, equal on every rank."""
+    metrics are the global batch's, equal on every rank.
+
+    On one card the step replays CUDA graphs (``step_fn.graphs``, a
+    :class:`StepGraphs`) wherever ``graph_blockers`` finds nothing in the
+    way; otherwise it runs ``step_fn.eager``, traced as the spans
+    ``train.forward``, ``train.backward`` and ``train.optimizer``."""
     data = mesh_lib.axis_size(mesh, "data")
     group = mesh_lib.axis_group(mesh, "data")
     loss_fn = make_loss_fn(spec, cfg, group)
     schedule = make_learning_rate(cfg)
     accum = max(int(cfg.grad_accum_steps or 1), 1)
+    graphs = StepGraphs(cfg, loss_fn, schedule, mesh)
 
-    def step_fn(state: TrainState, batch: Mapping[str, torch.Tensor]):
+    def eager(state: TrainState, batch: Mapping[str, torch.Tensor]):
         b = batch["image"].shape[0]
-        if b % accum:
-            if mesh is not None:
-                raise ValueError(
-                    f"microbatch {b * data / accum:g} (batch {b * data} / "
-                    f"accum {accum}) not divisible by the data-axis size "
-                    f"{data}")
-            raise ValueError(f"per-host batch {b} not divisible by "
-                             f"grad_accum_steps {accum}")
-        if state.mesh is not mesh:
-            raise ValueError("the state was made for another mesh than "
-                             "the step's (create_state(mesh=...))")
         m = b // accum
         state.optimizer.zero_grad(set_to_none=True)
         micro = []
@@ -639,6 +920,24 @@ def make_train_step(spec: DatasetSpec, cfg: config_lib.TrainConfig,
             metrics["grad_norm"] = apply_gradients(state, cfg, schedule)
         return state, metrics
 
+    def step_fn(state: TrainState, batch: Mapping[str, torch.Tensor]):
+        b = batch["image"].shape[0]
+        if b % accum:
+            if mesh is not None:
+                raise ValueError(
+                    f"microbatch {b * data / accum:g} (batch {b * data} / "
+                    f"accum {accum}) not divisible by the data-axis size "
+                    f"{data}")
+            raise ValueError(f"per-host batch {b} not divisible by "
+                             f"grad_accum_steps {accum}")
+        if state.mesh is not mesh:
+            raise ValueError("the state was made for another mesh than "
+                             "the step's (create_state(mesh=...))")
+        if graphs.eager_reasons(state, batch):
+            return eager(state, batch)
+        return state, graphs.step(state, batch)
+
+    step_fn.graphs, step_fn.eager = graphs, eager
     return step_fn
 
 
@@ -730,8 +1029,10 @@ def train(cfg: config_lib.TrainConfig, *, train_iter: Iterable | None = None,
     after every step.  Returns ``(state, history)``.  Traced
     (``utils/profiling.py``), each iteration is the span ``train.step``
     holding ``train.input`` (the batch's hand-off and copy, its decode
-    included), ``train.forward``, ``train.backward`` and
-    ``train.optimizer``.
+    included), then ``train.replay`` (after a ``train.capture`` at a
+    graph's first step; ``train.graph_launch`` in it is the launch) where
+    the step runs as a CUDA graph, else
+    ``train.forward``, ``train.backward`` and ``train.optimizer``.
 
     With a ``checkpoint_manager`` the run resumes from its latest step
     (the learning rate keyed on the restored step), and saves every
