@@ -243,10 +243,12 @@ def shard_slice(t: torch.Tensor, plan: LeafPlan, index: int,
 # -- collectives -------------------------------------------------------------
 
 def all_reduce_flat(tensors: Sequence[torch.Tensor], group=None,
-                    op=dist.ReduceOp.SUM) -> None:
+                    op=dist.ReduceOp.SUM) -> int:
     """All-reduce ``tensors`` in place as flat buckets of at most
     ``BUCKET_ELEMENTS`` elements of one dtype: a few collectives for a
-    model's gradients instead of one a tensor."""
+    model's gradients instead of one a tensor.  Returns the number of
+    collectives."""
+    count = 0
     by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
@@ -261,6 +263,7 @@ def all_reduce_flat(tensors: Sequence[torch.Tensor], group=None,
             if bucket:
                 flat = torch.cat([b.reshape(-1) for b in bucket])
                 dist.all_reduce(flat, op=op, group=group)
+                count += 1
                 off = 0
                 for b in bucket:
                     b.copy_(flat[off:off + b.numel()].view_as(b))
@@ -269,6 +272,7 @@ def all_reduce_flat(tensors: Sequence[torch.Tensor], group=None,
                 bucket, size = [t], t.numel()
             else:
                 bucket = []
+    return count
 
 
 def all_gather_cat(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:

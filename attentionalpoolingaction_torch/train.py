@@ -878,7 +878,10 @@ def make_train_step(spec: DatasetSpec, cfg: config_lib.TrainConfig,
     On one card the step replays CUDA graphs (``step_fn.graphs``, a
     :class:`StepGraphs`) wherever ``graph_blockers`` finds nothing in the
     way; otherwise it runs ``step_fn.eager``, traced as the spans
-    ``train.forward``, ``train.backward`` and ``train.optimizer``."""
+    ``train.forward``, ``train.backward`` and ``train.optimizer``, and on
+    a mesh ``train.all_reduce`` (the gradients' exchange: its ``bytes``
+    and ``buckets``, the collectives it took) and ``train.loss_reduce``
+    (the metrics')."""
     data = mesh_lib.axis_size(mesh, "data")
     group = mesh_lib.axis_group(mesh, "data")
     loss_fn = make_loss_fn(spec, cfg, group)
@@ -908,13 +911,18 @@ def make_train_step(spec: DatasetSpec, cfg: config_lib.TrainConfig,
             for p in state.model.parameters():
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            mesh_lib.all_reduce_flat(
-                [p.grad for p in state.model.parameters()], group)
+            grads = [p.grad for p in state.model.parameters()]
+            with profiling.span("train.all_reduce") as s:
+                buckets = mesh_lib.all_reduce_flat(grads, group)
+                if s is not None:
+                    s.ids.update(buckets=buckets, bytes=sum(
+                        g.numel() * g.element_size() for g in grads))
             # each rank's losses are its shares: their sum is the global
             # batch's
             keys = sorted(metrics)
             shares = torch.stack([metrics[k] for k in keys])
-            torch.distributed.all_reduce(shares, group=group)
+            with profiling.span("train.loss_reduce"):
+                torch.distributed.all_reduce(shares, group=group)
             metrics = dict(zip(keys, shares.unbind()))
         with profiling.span("train.optimizer"):
             metrics["grad_norm"] = apply_gradients(state, cfg, schedule)
@@ -1032,7 +1040,8 @@ def train(cfg: config_lib.TrainConfig, *, train_iter: Iterable | None = None,
     included), then ``train.replay`` (after a ``train.capture`` at a
     graph's first step; ``train.graph_launch`` in it is the launch) where
     the step runs as a CUDA graph, else
-    ``train.forward``, ``train.backward`` and ``train.optimizer``.
+    ``train.forward``, ``train.backward``, on a mesh ``train.all_reduce``
+    and ``train.loss_reduce``, and ``train.optimizer``.
 
     With a ``checkpoint_manager`` the run resumes from its latest step
     (the learning rate keyed on the restored step), and saves every

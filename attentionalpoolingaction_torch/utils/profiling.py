@@ -86,10 +86,14 @@ class Span:
         if self.parent is None and stack:
             self.parent = stack[-1]
         stack.append(self)
-        self.start_ns = time.time_ns()
         if torch._C._autograd._profiler_enabled():     # this thread's
             self._rf = record_function(self.name)
             self._rf.__enter__()
+        # read after the mark is entered, whose start the profiler takes
+        # inside that call: entering costs tens of microseconds, and more
+        # at a session's first mark, which would otherwise fall between
+        # the span's start and its mark's
+        self.start_ns = time.time_ns()
         return self
 
     def __exit__(self, *exc) -> None:
