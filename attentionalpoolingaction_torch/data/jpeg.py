@@ -6,9 +6,9 @@ and linked with the toolkit's ``libnvjpeg``), OpenCV on the CPU.
 tensor a JPEG stream, on ``device``:
 
   * on a CUDA device nvJPEG decodes each image into planar Y, Cb and Cr
-    tensors that torch's allocator owns, on the current stream, with one
-    nvJPEG handle and state per host thread, kept for the life of the
-    process (so decode on a bounded set of threads;
+    tensors that torch's allocator owns, on the caller's current stream,
+    with one nvJPEG handle and state per host thread, kept for the life of
+    the process (so decode on a bounded set of threads;
     :func:`decoder_count`); then :func:`ycc_to_rgb_batch`, the
     kernel, upsamples the chroma and converts to RGB as libjpeg does
     (nvJPEG's own RGB output replicates the chroma of 4:2:0 and 4:2:2
@@ -24,6 +24,17 @@ tensor a JPEG stream, on ``device``:
     ``cvtColor(BGR2RGB)``, the JAX package's ``decode_jpeg``.  OpenCV is
     imported there only.
 
+A call of two or more streams decodes them across a bounded pool of
+host threads that the process shares (nvJPEG's Huffman decoding, and
+OpenCV's, run on the calling host thread and release the interpreter
+lock): ``min(streams, torch.get_num_threads(), POOL_THREADS)`` of them,
+each image to the next free one, each thread with its own nvJPEG
+decoder, and the call waits for all of them before the colour kernel.
+So a process makes at most ``POOL_THREADS`` decoders for the pool, beside
+one a thread that calls with a single stream: such a call, every call of
+serving's, decodes inline on the caller's thread.  The output, its order
+and its bits are the serial decode's.
+
 ``cv2.imdecode(IMREAD_COLOR)`` applies a stream's EXIF orientation (a
 mirror, a rotation or a transpose); nvJPEG does not, so on the card
 :func:`orient` applies it to the decoded (H, W, 3) tensor as OpenCV does,
@@ -34,10 +45,11 @@ swapped for the orientations 5-8 that transpose).
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import threading
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -45,10 +57,11 @@ import torch
 from attentionalpoolingaction_torch.ops import _build
 from attentionalpoolingaction_torch.utils import profiling
 
-__all__ = ["LIBRARY", "YccBatchPlan", "decode", "decode_calls",
-           "decode_count", "decode_planes", "decoder_count", "frame_size",
-           "image_size",
-           "launch_counts", "orient", "reset_counts", "ycc_batch_plan",
+__all__ = ["LIBRARY", "POOL_THREADS", "YccBatchPlan", "decode",
+           "decode_calls", "decode_count", "decode_planes", "decoder_count",
+           "frame_size", "image_size",
+           "launch_counts", "orient", "pool_width", "pooled_calls",
+           "reset_counts", "ycc_batch_plan",
            "ycc_images", "ycc_to_rgb", "ycc_to_rgb_batch",
            "ycc_to_rgb_plain"]
 
@@ -100,6 +113,60 @@ launch_counts = {"ycc_to_rgb": 0}
 that holds a colour image."""
 ycc_images = 0
 """Images the colour kernel converted since the last reset."""
+pooled_calls = 0
+"""Calls, on either device, whose images were decoded across more than one
+thread of the pool since the last reset."""
+
+POOL_THREADS = 8
+"""Threads of the process's decode pool, so the most nvJPEG decoders it
+makes."""
+# its threads start at the first call of two or more streams
+_POOL = concurrent.futures.ThreadPoolExecutor(
+    POOL_THREADS, thread_name_prefix="jpeg-decode")
+
+
+def pool_width(n: int) -> int:
+    """Threads a call of ``n`` streams decodes on: 1 (inline, on the
+    caller's thread) for one stream, else the least of ``n``, this
+    process's intra-op threads (``torch.get_num_threads()``, which a
+    launcher sets to the process's share of the host's cores) and
+    :data:`POOL_THREADS`."""
+    return max(1, min(n, torch.get_num_threads(), POOL_THREADS))
+
+
+def _map_images(fn: Callable[[bytes, int], object],
+                datas: Sequence[bytes]) -> list:
+    """``[fn(data, i) for i, data in enumerate(datas)]``, across
+    :func:`pool_width` threads of the pool, each taking the next image not
+    yet taken; inline for a width of 1.  Where images fail, it waits for
+    every task, then raises the error of the first in input order, so no
+    task still writes a tensor the caller has let go."""
+    width = pool_width(len(datas))
+    if width == 1:
+        return [fn(d, i) for i, d in enumerate(datas)]
+    global pooled_calls
+    with _count_lock:
+        pooled_calls += 1
+    out, errors = [None] * len(datas), {}
+    order = iter(range(len(datas)))
+    take = threading.Lock()
+
+    def task():
+        while True:
+            with take:
+                i = next(order, None)
+            if i is None:
+                return
+            try:
+                out[i] = fn(datas[i], i)
+            except Exception as e:      # raised on the caller's thread
+                errors[i] = e
+
+    for f in [_POOL.submit(task) for _ in range(width)]:
+        f.result()
+    if errors:
+        raise errors[min(errors)]
+    return out
 
 
 def decoder_count() -> int:
@@ -109,9 +176,9 @@ def decoder_count() -> int:
 
 
 def reset_counts() -> None:
-    global decode_count, decode_calls, ycc_images
+    global decode_count, decode_calls, ycc_images, pooled_calls
     with _count_lock:
-        decode_count = decode_calls = ycc_images = 0
+        decode_count = decode_calls = ycc_images = pooled_calls = 0
         launch_counts["ycc_to_rgb"] = 0
 
 
@@ -399,42 +466,50 @@ def _decode_cpu(data: bytes, index: int) -> torch.Tensor:
     return torch.from_numpy(cv2.cvtColor(arr, cv2.COLOR_BGR2RGB))
 
 
+def _decode_planes_one(lib, data: bytes, i: int, device: torch.device,
+                       stream: torch.cuda.Stream) -> tuple:
+    """nvJPEG's planes of stream ``i`` on ``device``, decoded and allocated
+    on ``stream`` whichever thread runs it."""
+    data = bytes(data)
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        info = [ctypes.c_int() for _ in range(6)]
+        _check(lib, lib.apj_image_info(data, len(data),
+                                       *map(ctypes.byref, info)),
+               f"JPEG {i}: nvJPEG cannot read it")
+        comps, css, w, h, cw, ch = (v.value for v in info)
+        gray = comps == 1 or css == _CSS_GRAY
+        if not gray and (comps != 3 or css not in _SAMPLING):
+            raise ValueError(
+                f"JPEG {i}: unsupported stream, {comps} components, "
+                f"{_CSS_NAMES.get(css, css)} chroma")
+        y = torch.empty((h, w), dtype=torch.uint8, device=device)
+        if gray:
+            _check(lib, lib.apj_decode(data, len(data), 1, y.data_ptr(), w,
+                                       None, None, 0, stream.cuda_stream),
+                   f"JPEG {i}: nvJPEG decode failed")
+            return y, None, None, None
+        cb, cr = (torch.empty((ch, cw), dtype=torch.uint8, device=device)
+                  for _ in range(2))
+        _check(lib, lib.apj_decode(data, len(data), 0, y.data_ptr(), w,
+                                   cb.data_ptr(), cr.data_ptr(), cw,
+                                   stream.cuda_stream),
+               f"JPEG {i}: nvJPEG decode failed")
+        return y, cb, cr, _SAMPLING[css]
+
+
 def decode_planes(datas: Sequence[bytes], device) -> list[tuple]:
     """nvJPEG's decode of each stream on a CUDA ``device``, before the
     colour kernel: ``(y, cb, cr, (hf, vf))`` of uint8 planes for a colour
-    stream, ``(y, None, None, None)`` for a grayscale one."""
+    stream, ``(y, None, None, None)`` for a grayscale one.  Two or more
+    streams are decoded across :func:`pool_width` threads of the pool,
+    each with its own nvJPEG decoder, one stream inline; every decode, and
+    its planes' allocation, is on the caller's current stream."""
     device = torch.device(device)
     lib = LIBRARY.load()
-    out = []
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for i, data in enumerate(datas):
-            data = bytes(data)
-            info = [ctypes.c_int() for _ in range(6)]
-            _check(lib, lib.apj_image_info(data, len(data),
-                                           *map(ctypes.byref, info)),
-                   f"JPEG {i}: nvJPEG cannot read it")
-            comps, css, w, h, cw, ch = (v.value for v in info)
-            gray = comps == 1 or css == _CSS_GRAY
-            if not gray and (comps != 3 or css not in _SAMPLING):
-                raise ValueError(
-                    f"JPEG {i}: unsupported stream, {comps} components, "
-                    f"{_CSS_NAMES.get(css, css)} chroma")
-            y = torch.empty((h, w), dtype=torch.uint8, device=device)
-            if gray:
-                _check(lib, lib.apj_decode(data, len(data), 1, y.data_ptr(),
-                                           w, None, None, 0, stream),
-                       f"JPEG {i}: nvJPEG decode failed")
-                out.append((y, None, None, None))
-                continue
-            cb, cr = (torch.empty((ch, cw), dtype=torch.uint8, device=device)
-                      for _ in range(2))
-            _check(lib, lib.apj_decode(data, len(data), 0, y.data_ptr(), w,
-                                       cb.data_ptr(), cr.data_ptr(), cw,
-                                       stream),
-                   f"JPEG {i}: nvJPEG decode failed")
-            out.append((y, cb, cr, _SAMPLING[css]))
-    return out
+    stream = torch.cuda.current_stream(device)
+    return _map_images(
+        lambda data, i: _decode_planes_one(lib, data, i, device, stream),
+        datas)
 
 
 def _decode_cuda(datas: Sequence[bytes], device: torch.device,
@@ -461,11 +536,17 @@ def _decode_cuda(datas: Sequence[bytes], device: torch.device,
 def decode(datas: Sequence[bytes], device) -> list[torch.Tensor]:
     """RGB uint8 (H, W, 3) tensors of the JPEG streams ``datas`` on
     ``device``: nvJPEG on a CUDA device, OpenCV on the CPU, each with
-    the stream's EXIF orientation applied.  A traced call is the span
-    ``jpeg.decode`` (nvJPEG's host work and the colour kernel's launch on a
-    card), with its ``images``."""
+    the stream's EXIF orientation applied.  Two or more streams are
+    decoded across :func:`pool_width` threads of the process's pool (on a
+    card, each with its own nvJPEG decoder, on the caller's stream), one
+    stream inline on the caller's thread; on a card one colour-kernel
+    launch then converts the call's colour images.  A traced call is the
+    span ``jpeg.decode`` on the caller's thread (nvJPEG's host work and
+    the colour kernel's launch on a card), with its ``images`` and the
+    ``threads`` it decoded on."""
     device = torch.device(device)
-    with profiling.span("jpeg.decode", images=len(datas)):
+    with profiling.span("jpeg.decode", images=len(datas),
+                        threads=pool_width(len(datas))):
         orientations = []
         for i, data in enumerate(datas):
             try:
@@ -473,7 +554,7 @@ def decode(datas: Sequence[bytes], device) -> list[torch.Tensor]:
             except ValueError as e:
                 raise ValueError(f"JPEG {i}: {e}") from None
         if device.type == "cpu":
-            return [_decode_cpu(d, i) for i, d in enumerate(datas)]
+            return _map_images(_decode_cpu, datas)
         if device.type != "cuda":
             raise ValueError(f"JPEG decode runs on cuda or cpu, not "
                              f"{device}")

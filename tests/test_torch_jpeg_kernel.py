@@ -17,10 +17,16 @@ plain version, and the decode on the card against the JAX pipeline.
     most 1% of pixels off by more than 8), also for streams with an EXIF
     orientation of 1-8, and decodes queued behind other work on the
     stream equal decodes on an idle card.
+  * On the card, a call's streams decoded across the pool's threads equal
+    the one-by-one decode bit for bit, on the caller's stream (held by
+    other work, or two callers at once), with one colour launch a call
+    and at most ``POOL_THREADS`` decoders made for the pool.
 """
 
+import contextlib
 import io
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -334,3 +340,116 @@ def test_decode_launches_the_colour_kernel_once_a_call():
     assert jpeg.decode_count == len(datas)
     for name, a, b in zip(NAMES, images, one_by_one):
         assert torch.equal(a, b), name
+
+
+@contextlib.contextmanager
+def torch_threads(n):
+    was = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(was)
+
+
+def one_by_one(datas):
+    want = [jpeg.decode([d], "cuda")[0] for d in datas]
+    torch.cuda.synchronize()
+    return want
+
+
+@pytest.mark.cuda
+def test_a_pooled_decode_equals_the_one_by_one_decode():
+    """The goldens twice over (14 streams) in one call, across 8 threads of
+    the pool: the one-by-one decode's images bit for bit, one colour launch
+    a call, and at most the pool's width of nvJPEG decoders made."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    datas = [fixture(n) for n in NAMES] * 2
+    want = one_by_one(datas)
+    made = jpeg.decoder_count()
+    jpeg.reset_counts()
+    with torch_threads(8):
+        assert jpeg.pool_width(len(datas)) == jpeg.POOL_THREADS == 8
+        for call in range(1, 4):
+            got = jpeg.decode(datas, "cuda")
+            torch.cuda.synchronize()
+            assert jpeg.launch_counts == {"ycc_to_rgb": call}
+            assert jpeg.pooled_calls == jpeg.decode_calls == call
+            for name, a, b in zip(NAMES * 2, got, want):
+                assert torch.equal(a, b), name
+    assert jpeg.decoder_count() - made <= jpeg.POOL_THREADS
+
+
+@pytest.mark.cuda
+def test_a_pooled_decode_stays_on_the_callers_stream(monkeypatch):
+    """The call runs on a side stream held 20 ms by other work, while the
+    default stream is held 60 ms: every nvJPEG decode of the call is handed
+    the side stream, on the pool's threads, and the images equal the
+    one-by-one decode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    datas = [fixture(n) for n in NAMES]
+    want = one_by_one(datas)
+    lib = jpeg.LIBRARY.load()
+    decode_one, handed = lib.apj_decode, []
+
+    def noting(*args):
+        handed.append((threading.get_ident(), args[-1]))
+        return decode_one(*args)
+
+    monkeypatch.setattr(lib, "apj_decode", noting)
+    side = torch.cuda.Stream()
+    with torch_threads(8):
+        for _ in range(3):
+            torch.cuda._sleep(60_000_000)
+            with torch.cuda.stream(side):
+                torch.cuda._sleep(20_000_000)
+                got = jpeg.decode(datas, "cuda")
+            torch.cuda.synchronize()
+            for name, a, b in zip(NAMES, got, want):
+                assert torch.equal(a, b), name
+    assert len(handed) == 3 * len(datas)
+    assert {stream for _, stream in handed} == {side.cuda_stream}
+    assert threading.get_ident() not in {t for t, _ in handed}
+
+
+@pytest.mark.cuda
+def test_two_callers_decode_through_the_pool_at_once():
+    """Two threads, each on a stream of its own, decode the goldens in
+    calls of 7 at once, 5 calls each: every image bit for bit the
+    one-by-one decode's, one colour launch a call, and the pool's decoders
+    bounded by its width."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    datas = [fixture(n) for n in NAMES]
+    want = one_by_one(datas)
+    made = jpeg.decoder_count()
+    jpeg.reset_counts()
+    results, errors = [], []
+
+    def caller():
+        try:
+            side = torch.cuda.Stream()
+            with torch.cuda.stream(side):
+                for _ in range(5):
+                    got = jpeg.decode(datas, "cuda")
+                    side.synchronize()
+                    results.append(got)
+        except Exception as e:      # noted for the assertion below
+            errors.append(e)
+
+    with torch_threads(8):
+        threads = [threading.Thread(target=caller) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert len(results) == 10
+    assert jpeg.launch_counts == {"ycc_to_rgb": 10}
+    assert jpeg.pooled_calls == jpeg.decode_calls == 10
+    for got in results:
+        for name, a, b in zip(NAMES, got, want):
+            assert torch.equal(a, b), name
+    assert jpeg.decoder_count() - made <= jpeg.POOL_THREADS

@@ -223,7 +223,7 @@ def test_one_predict_shares_its_request_id():
                  "serve.queue_wait"):
         assert by[name][0].get("request") == rid, name
     assert by["serve.dispatch"][0].get("requests") == [rid]
-    assert by["jpeg.decode"][0].ids == {"images": 1}
+    assert by["jpeg.decode"][0].ids == {"images": 1, "threads": 1}
     assert by["jpeg.decode"][0].parent is by["serve.preprocess"][0]
     assert by["serve.dispatch"][0].parent is by["serve.batch"][0]
     # the pool's decode and the batcher run on threads of their own
