@@ -58,12 +58,9 @@ from attentionalpoolingaction_torch.ops import _build
 from attentionalpoolingaction_torch.utils import profiling
 
 __all__ = ["LIBRARY", "POOL_THREADS", "YccBatchPlan", "decode",
-           "decode_calls", "decode_count", "decode_planes", "decoder_count",
-           "frame_size", "image_size",
-           "launch_counts", "orient", "pool_width", "pooled_calls",
-           "reset_counts", "ycc_batch_plan",
-           "ycc_images", "ycc_to_rgb", "ycc_to_rgb_batch",
-           "ycc_to_rgb_plain"]
+           "decode_planes", "decoder_count", "frame_size", "image_size",
+           "orient", "pool_width", "ycc_batch_plan", "ycc_to_rgb",
+           "ycc_to_rgb_batch", "ycc_to_rgb_plain"]
 
 # nvjpegChromaSubsampling_t
 _CSS_NAMES = {0: "4:4:4", 1: "4:2:2", 2: "4:2:0", 3: "4:4:0", 4: "4:1:1",
@@ -102,21 +99,6 @@ LIBRARY = _build.NativeLibrary(
     "jpeg_decode", _build.CSRC / "jpeg_decode.cu", compiler=_build.nvcc,
     flags=_build.NVCC_FLAGS, bind=_bind, link_flags=_link_flags)
 
-_count_lock = threading.Lock()
-decode_count = 0
-"""Images decoded on a CUDA device (by nvJPEG) since the last reset."""
-decode_calls = 0
-"""Calls of :func:`decode` on a CUDA device since the last reset."""
-launch_counts = {"ycc_to_rgb": 0}
-"""Launches of the colour kernel since the last reset: one a
-:func:`ycc_to_rgb_batch` call on the card, so one a :func:`decode` call
-that holds a colour image."""
-ycc_images = 0
-"""Images the colour kernel converted since the last reset."""
-pooled_calls = 0
-"""Calls, on either device, whose images were decoded across more than one
-thread of the pool since the last reset."""
-
 POOL_THREADS = 8
 """Threads of the process's decode pool, so the most nvJPEG decoders it
 makes."""
@@ -144,9 +126,6 @@ def _map_images(fn: Callable[[bytes, int], object],
     width = pool_width(len(datas))
     if width == 1:
         return [fn(d, i) for i, d in enumerate(datas)]
-    global pooled_calls
-    with _count_lock:
-        pooled_calls += 1
     out, errors = [None] * len(datas), {}
     order = iter(range(len(datas)))
     take = threading.Lock()
@@ -173,13 +152,6 @@ def decoder_count() -> int:
     """nvJPEG decoders made in this process: one for each host thread that
     decoded on a card, each kept until the process exits."""
     return LIBRARY.load().apj_decoder_count()
-
-
-def reset_counts() -> None:
-    global decode_count, decode_calls, ycc_images, pooled_calls
-    with _count_lock:
-        decode_count = decode_calls = ycc_images = pooled_calls = 0
-        launch_counts["ycc_to_rgb"] = 0
 
 
 def _check(lib, err: int, what: str) -> None:
@@ -444,10 +416,6 @@ def ycc_to_rgb_batch(planes: Sequence[tuple]) -> list[torch.Tensor]:
         _check(lib, lib.apj_ycc_to_rgb_batch(
             host.data_ptr(), table.data_ptr(), plan.n_images, plan.n_tiles,
             plan.smem_bytes, stream), "ycc_to_rgb launch")
-    global ycc_images
-    with _count_lock:
-        launch_counts["ycc_to_rgb"] += 1
-        ycc_images += len(outs)
     return outs
 
 
@@ -516,7 +484,6 @@ def _decode_cuda(datas: Sequence[bytes], device: torch.device,
                  orientations: Sequence[int]) -> list[torch.Tensor]:
     """nvJPEG's planes of every stream, then one colour-kernel launch for
     all the colour ones; grayscale streams as three equal channels."""
-    global decode_count, decode_calls
     planes = decode_planes(datas, device)
     colour = iter(ycc_to_rgb_batch([p for p in planes if p[3] is not None]))
     out = []
@@ -527,9 +494,6 @@ def _decode_cuda(datas: Sequence[bytes], device: torch.device,
         else:
             rgb = next(colour)
         out.append(orient(rgb, orientation))
-    with _count_lock:
-        decode_count += len(out)
-        decode_calls += 1
     return out
 
 

@@ -37,8 +37,8 @@ Design, as the JAX package's:
   * **The kernels stay kernels.**  The pooling head's two kernels are the
     custom ops ``apa::saliency_summary`` and ``apa::project_logits``
     (``ops/attn_pool_cuda.py``): each is one node of the graph, and the
-    loaded program calls the kernel on a card (counting its launches) and
-    the plain version on the CPU.  Importing that module, which registers
+    loaded program calls the kernel on a card and the plain version on
+    the CPU.  Importing that module, which registers
     the ops, is the only model code that loading needs.
 """
 

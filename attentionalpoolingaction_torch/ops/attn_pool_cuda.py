@@ -1,6 +1,6 @@
 """Fused attentional pooling on Hopper: wrappers around the CUDA kernels of
-``csrc/attn_pool.cu`` and ``csrc/attn_pool_backward.cu``, their plain
-PyTorch versions and launch counters.
+``csrc/attn_pool.cu`` and ``csrc/attn_pool_backward.cu``, and their plain
+PyTorch versions.
 
 Port of the JAX package's ``ops/attn_pool_pallas.py``:
 
@@ -36,9 +36,7 @@ CUDA tensors that need one, they raise.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import threading
 
 import torch
 
@@ -66,62 +64,6 @@ _PROJ_MAX_BT = 32               # the longest image tile the kernel takes
 _BWD_STATIC_SMEM = 4 * MAX_RANK  # csrc/attn_pool_backward.cu: dssum[P]
 
 _X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-_count_lock = threading.Lock()
-launch_counts = {"saliency_summary": 0, "project_logits": 0,
-                 "pool_backward": 0}
-# per thread: where the wrappers count while a CUDA graph is captured
-_recording = threading.local()
-# per CUDA stream (its handle): where launches on it count, from any
-# thread (autograd runs a backward on a thread of its own, on the stream
-# of its forward)
-_recording_streams: dict[int, dict] = {}
-
-
-def reset_launch_counts() -> None:
-    with _count_lock:
-        for k in launch_counts:
-            launch_counts[k] = 0
-
-
-def _count(name: str) -> None:
-    counts = getattr(_recording, "counts", None)
-    if counts is None and _recording_streams:
-        counts = _recording_streams.get(
-            torch.cuda.current_stream().cuda_stream)
-    if counts is not None:
-        counts[name] += 1
-        return
-    with _count_lock:
-        launch_counts[name] += 1
-
-
-@contextlib.contextmanager
-def recording_launches(stream: torch.cuda.Stream | None = None):
-    """The launches this thread's wrappers make inside the block, and with
-    ``stream`` those any thread makes on that stream, counted into the
-    dict it yields and not into :data:`launch_counts`: a CUDA graph
-    capture records launches and runs none.  Each replay of the graph
-    adds them with :func:`add_launches`."""
-    counts = dict.fromkeys(launch_counts, 0)
-    prev = getattr(_recording, "counts", None)
-    _recording.counts = counts
-    if stream is not None:
-        _recording_streams[stream.cuda_stream] = counts
-    try:
-        yield counts
-    finally:
-        _recording.counts = prev
-        if stream is not None:
-            del _recording_streams[stream.cuda_stream]
-
-
-def add_launches(counts: dict) -> None:
-    """Count the launches of a replayed CUDA graph (the counts its capture
-    recorded)."""
-    with _count_lock:
-        for name, n in counts.items():
-            launch_counts[name] += n
 
 
 # -- plain versions ----------------------------------------------------------
@@ -405,7 +347,6 @@ def _saliency_summary_op(x: torch.Tensor, sal_w: torch.Tensor,
             plan.cluster, plan.r2, plan.path == "resident",
             plan.smem_bytes, _stream())
     _raise_if(err, "saliency_summary", lib.apa_error_string)
-    _count("saliency_summary")
     return v, s
 
 
@@ -469,7 +410,6 @@ def _project_logits_op(v: torch.Tensor, s: torch.Tensor, w_pfc: torch.Tensor,
             logits.data_ptr(), b, n, f, c, p, plan.k_split, plan.k_rows,
             plan.b_tile, plan.a_resident, plan.smem_bytes, _stream())
     _raise_if(err, "project_logits", lib.apa_error_string)
-    _count("project_logits")
     return logits
 
 
@@ -596,7 +536,6 @@ def _pool_backward_kernel(x, dv, s, g, attn_b, sal_w):
                 p, plan.cluster, plan.r2, plan.path == "resident",
                 plan.smem_bytes, _stream())
         _raise_if(err, "pool_backward", lib.apb_error_string)
-        _count("pool_backward")
     total = red.sum(dim=0)
     return (dx, total[:fp].view(f, p), total[fp:fp + p],
             total[fp + p:].view(c, p))

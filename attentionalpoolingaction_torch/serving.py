@@ -55,7 +55,6 @@ from attentionalpoolingaction_torch.data.datasets import get_dataset
 from attentionalpoolingaction_torch.data.grain_pipeline import _segment_picks
 from attentionalpoolingaction_torch.device import resolve_device
 from attentionalpoolingaction_torch.models import inference as inf
-from attentionalpoolingaction_torch.ops import attn_pool_cuda as apc
 from attentionalpoolingaction_torch.train import build_model, normalize_images
 from attentionalpoolingaction_torch.utils import profiling
 
@@ -266,13 +265,9 @@ class _ReplicaGraph:
     """The forward of one replica at one input shape and dtype, captured
     as a CUDA graph on the replica's stream, with its static input and
     output, pinned host buffers and an event.  ``weights`` are the ones
-    captured (kept alive with the graph, which reads them in place).
-
-    A replay passes through no kernel wrapper, so the launches that the
-    capture recorded (``apc.recording_launches``) are added to the
-    counters at each replay; the capture itself counts none, and the eager
-    warm-up before it counts as the launches it makes.  A graph keeps the
-    backend settings (TF32) in force when it was captured."""
+    captured (kept alive with the graph, which reads them in place).  A
+    graph keeps the backend settings (TF32) in force when it was
+    captured."""
 
     def __init__(self, predictor, weights, device: torch.device, shape,
                  dtype: torch.dtype, stream, pool):
@@ -286,9 +281,8 @@ class _ReplicaGraph:
                 # and fills the heads' caches outside the graph
                 predictor.logits(weights, self.input, device=device)
             self.graph = torch.cuda.CUDAGraph()
-            with apc.recording_launches() as self.launches, \
-                    torch.cuda.graph(self.graph, pool=pool, stream=stream,
-                                     capture_error_mode="thread_local"):
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
                 self.output = predictor.logits(weights, self.input,
                                                device=device)
         self.host_out = torch.empty(self.output.shape, dtype=torch.float32,
@@ -313,7 +307,6 @@ class _ReplicaGraph:
             self.graph.replay()
             self.host_out.copy_(self.output, non_blocking=True)
             self.done.record(stream)
-        apc.add_launches(self.launches)
 
     def read(self) -> np.ndarray:
         self.done.synchronize()

@@ -100,7 +100,6 @@ from attentionalpoolingaction_torch.models.resnet import (
     BatchNorm,
     feature_size,
 )
-from attentionalpoolingaction_torch.ops import attn_pool_cuda as apc
 from attentionalpoolingaction_torch.ops import heatmap as hm
 from attentionalpoolingaction_torch.parallel import mesh as mesh_lib
 from attentionalpoolingaction_torch.parallel import multihost
@@ -688,9 +687,7 @@ class _StepGraph:
     moved is put back bit for bit: the parameters, the buffers, the
     momentum and the EMA (``state.step`` is not moved).  A momentum buffer
     no step has made yet is made first as zeros, the same first step with
-    dampening 0.  The launches of those rehearsals are not counted
-    (``ops/attn_pool_cuda.py``); each replay counts those the capture
-    recorded."""
+    dampening 0."""
 
     def __init__(self, state: TrainState, batch, loss_fn, schedule,
                  cfg: config_lib.TrainConfig):
@@ -715,7 +712,7 @@ class _StepGraph:
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         try:
-            with torch.cuda.stream(side), apc.recording_launches(side):
+            with torch.cuda.stream(side):
                 for _ in range(_REHEARSALS):
                     self._body(state)
         finally:
@@ -726,9 +723,8 @@ class _StepGraph:
                 g["lr"] = lr
             del saved
         self.graph = torch.cuda.CUDAGraph()
-        with apc.recording_launches(side) as self.launches, \
-                torch.cuda.graph(self.graph, stream=side,
-                                 capture_error_mode="thread_local"):
+        with torch.cuda.graph(self.graph, stream=side,
+                              capture_error_mode="thread_local"):
             self.outputs = self._body(state)
         self.grads = [p.grad for p in self.params]
         self.written = self._written()
@@ -792,7 +788,6 @@ class _StepGraph:
         for p, g in zip(self.params, self.grads):
             if p.grad is not g:
                 p.grad = g
-        apc.add_launches(self.launches)
         return metrics
 
 

@@ -23,7 +23,10 @@ import pytest
 import torch
 
 from attentionalpoolingaction_torch.models.heads import AttentionalPoolingHead
+from attentionalpoolingaction_torch.ops import _build
 from attentionalpoolingaction_torch.ops import attn_pool_cuda as apc
+
+from kernel_trace import traced
 
 torch.set_num_threads(2)
 
@@ -154,11 +157,10 @@ def test_grads_on_card_match_plain_autograd(x_dtype, b, n, f, c, p):
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     inputs, g = make_inputs(b + p, b=b, n=n, f=f, c=c, p=p)
-    apc.reset_launch_counts()
-    _, grads = port_grads(inputs, g, x_dtype, device="cuda")
-    torch.cuda.synchronize()
-    assert apc.launch_counts == {"saliency_summary": 1, "project_logits": 1,
-                                 "pool_backward": 1}
+    (_, grads), trace = traced(
+        lambda: port_grads(inputs, g, x_dtype, device="cuda"))
+    assert trace.launches == {"saliency_summary": 1, "project_logits": 1,
+                              "pool_backward": 1, "ycc_to_rgb": 0}
     t = {k: torch.from_numpy(v).cuda().requires_grad_()
          for k, v in inputs.items()}
     t["x"] = t["x"].detach().to(x_dtype).requires_grad_()
@@ -173,17 +175,16 @@ def test_grads_on_card_match_plain_autograd(x_dtype, b, n, f, c, p):
 
 def test_cpu_backward_is_its_plain_version():
     """On CPU tensors fused_pool_backward is fused_pool_backward_plain,
-    bit for bit, and launches nothing."""
+    bit for bit, and builds no kernel."""
     inputs, g = make_inputs(5, p=3)
     t = {k: torch.from_numpy(v) for k, v in inputs.items()}
     v, s = apc.saliency_summary_plain(t["x"], t["sal_w"], t["sal_b"])
     w_pfc = apc.attn_w_pfc(t["attn_w"])
     args = (t["x"], w_pfc, t["attn_b"], t["sal_w"], v, s,
             torch.from_numpy(g))
-    apc.reset_launch_counts()
     got = apc.fused_pool_backward(*args)
     want = apc.fused_pool_backward_plain(*args)
-    assert apc.launch_counts["pool_backward"] == 0
+    assert not _build.ATTN_POOL_BACKWARD.loaded()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 
@@ -229,11 +230,9 @@ def test_backward_kernel_matches_its_plain_version(x_dtype, b, n, f, c, p):
     v, s = apc.saliency_summary_plain(x, t["sal_w"], t["sal_b"])
     args = (x, apc.attn_w_pfc(t["attn_w"]), t["attn_b"], t["sal_w"], v, s,
             torch.from_numpy(g).cuda())
-    apc.reset_launch_counts()
-    got = apc.fused_pool_backward(*args)
-    again = apc.fused_pool_backward(*args)
-    torch.cuda.synchronize()
-    assert apc.launch_counts["pool_backward"] == 2
+    (got, again), trace = traced(lambda: (apc.fused_pool_backward(*args),
+                                          apc.fused_pool_backward(*args)))
+    assert trace.launches["pool_backward"] == 2
     want = apc.fused_pool_backward_plain(*args)
     assert got[0].dtype == x_dtype and got[0].is_contiguous()
     for name, a, a2, w in zip(NAMES, got, again, want):

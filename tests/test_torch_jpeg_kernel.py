@@ -35,6 +35,8 @@ import torch
 from attentionalpoolingaction_torch.data import jpeg
 from attentionalpoolingaction_torch.data import preprocessing as pp
 
+from kernel_trace import traced
+
 torch.set_num_threads(2)
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures_torch")
 GOLDEN = np.load(os.path.join(FIXTURES, "golden.npz"))
@@ -198,10 +200,9 @@ def test_colour_kernel_equals_its_plain_version(h, w, hf, vf):
                             dtype=torch.uint8, generator=g)
               for _ in range(2))
     want = jpeg.ycc_to_rgb_plain(y, cb, cr, hf, vf)
-    jpeg.reset_counts()
-    got = jpeg.ycc_to_rgb(y.cuda(), cb.cuda(), cr.cuda(), hf, vf)
-    torch.cuda.synchronize()
-    assert jpeg.launch_counts == {"ycc_to_rgb": 1}
+    y, cb, cr = y.cuda(), cb.cuda(), cr.cuda()
+    got, trace = traced(lambda: jpeg.ycc_to_rgb(y, cb, cr, hf, vf))
+    assert trace.launches["ycc_to_rgb"] == 1
     assert torch.equal(got.cpu(), want)
 
 
@@ -229,9 +230,8 @@ def mixed_planes(seed, device="cpu"):
 
 def test_batch_on_the_cpu_is_each_images_plain_version():
     planes = mixed_planes(0)
-    jpeg.reset_counts()
     got = jpeg.ycc_to_rgb_batch(planes)
-    assert jpeg.launch_counts == {"ycc_to_rgb": 0} and jpeg.ycc_images == 0
+    assert not jpeg.LIBRARY.loaded()        # no kernel built, none run
     assert len(got) == len(planes)
     for (y, cb, cr, sampling), rgb in zip(planes, got):
         assert rgb.shape == (*y.shape, 3) and rgb.dtype == torch.uint8
@@ -309,12 +309,10 @@ def test_batched_colour_kernel_equals_its_plain_version():
         pytest.skip("needs a CUDA card")
     planes = mixed_planes(1)
     card = [(y.cuda(), cb.cuda(), cr.cuda(), s) for y, cb, cr, s in planes]
-    jpeg.reset_counts()
-    got = jpeg.ycc_to_rgb_batch(card)
-    again = jpeg.ycc_to_rgb_batch(card)
-    torch.cuda.synchronize()
-    assert jpeg.launch_counts == {"ycc_to_rgb": 2}
-    assert jpeg.ycc_images == 2 * len(planes)
+    (got, again), trace = traced(lambda: (jpeg.ycc_to_rgb_batch(card),
+                                          jpeg.ycc_to_rgb_batch(card)))
+    assert trace.launches["ycc_to_rgb"] == 2
+    assert len(got) == len(again) == len(planes)
     for (y, cb, cr, sampling), a, b in zip(planes, got, again):
         assert a.is_contiguous() and a.shape == (*y.shape, 3)
         assert torch.equal(a, b)
@@ -323,7 +321,7 @@ def test_batched_colour_kernel_equals_its_plain_version():
 
 
 @pytest.mark.cuda
-def test_decode_launches_the_colour_kernel_once_a_call():
+def test_decode_launches_the_colour_kernel_once_a_call(monkeypatch):
     """decode() of every fixture, grayscale among them: one colour launch
     for the call, one image converted for each colour stream, the same
     images as decoded one at a time."""
@@ -331,13 +329,15 @@ def test_decode_launches_the_colour_kernel_once_a_call():
         pytest.skip("needs a CUDA card")
     datas = [fixture(n) for n in NAMES]
     one_by_one = [jpeg.decode([d], "cuda")[0] for d in datas]
-    jpeg.reset_counts()
-    images = jpeg.decode(datas, "cuda")
-    torch.cuda.synchronize()
+    converted, batch = [], jpeg.ycc_to_rgb_batch
+    monkeypatch.setattr(jpeg, "ycc_to_rgb_batch",
+                        lambda planes: converted.append(len(planes))
+                        or batch(planes))
+    images, trace = traced(lambda: jpeg.decode(datas, "cuda"))
     colour = sum(not n.startswith("gray") for n in NAMES)
-    assert jpeg.launch_counts == {"ycc_to_rgb": 1}
-    assert jpeg.ycc_images == colour and jpeg.decode_calls == 1
-    assert jpeg.decode_count == len(datas)
+    assert trace.launches["ycc_to_rgb"] == 1 and converted == [colour]
+    assert [s.ids["images"] for s in trace.spans("jpeg.decode")] == [
+        len(datas)]
     for name, a, b in zip(NAMES, images, one_by_one):
         assert torch.equal(a, b), name
 
@@ -368,14 +368,13 @@ def test_a_pooled_decode_equals_the_one_by_one_decode():
     datas = [fixture(n) for n in NAMES] * 2
     want = one_by_one(datas)
     made = jpeg.decoder_count()
-    jpeg.reset_counts()
     with torch_threads(8):
         assert jpeg.pool_width(len(datas)) == jpeg.POOL_THREADS == 8
-        for call in range(1, 4):
-            got = jpeg.decode(datas, "cuda")
-            torch.cuda.synchronize()
-            assert jpeg.launch_counts == {"ycc_to_rgb": call}
-            assert jpeg.pooled_calls == jpeg.decode_calls == call
+        for _ in range(3):
+            got, trace = traced(lambda: jpeg.decode(datas, "cuda"))
+            assert trace.launches["ycc_to_rgb"] == 1
+            assert [s.ids for s in trace.spans("jpeg.decode")] == [
+                {"images": len(datas), "threads": 8}]
             for name, a, b in zip(NAMES * 2, got, want):
                 assert torch.equal(a, b), name
     assert jpeg.decoder_count() - made <= jpeg.POOL_THREADS
@@ -425,7 +424,6 @@ def test_two_callers_decode_through_the_pool_at_once():
     datas = [fixture(n) for n in NAMES]
     want = one_by_one(datas)
     made = jpeg.decoder_count()
-    jpeg.reset_counts()
     results, errors = [], []
 
     def caller():
@@ -439,16 +437,21 @@ def test_two_callers_decode_through_the_pool_at_once():
         except Exception as e:      # noted for the assertion below
             errors.append(e)
 
-    with torch_threads(8):
+    def both():
         threads = [threading.Thread(target=caller) for _ in range(2)]
         for t in threads:
             t.start()
         for t in threads:
             t.join(timeout=120)
+        return threads
+
+    with torch_threads(8):
+        threads, trace = traced(both)
     assert not any(t.is_alive() for t in threads) and not errors, errors
     assert len(results) == 10
-    assert jpeg.launch_counts == {"ycc_to_rgb": 10}
-    assert jpeg.pooled_calls == jpeg.decode_calls == 10
+    assert trace.launches["ycc_to_rgb"] == 10
+    assert [s.ids for s in trace.spans("jpeg.decode")] == [
+        {"images": len(datas), "threads": len(datas)}] * 10
     for got in results:
         for name, a, b in zip(NAMES, got, want):
             assert torch.equal(a, b), name

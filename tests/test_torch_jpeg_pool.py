@@ -5,8 +5,7 @@ and gives the serial decode's images in input order; a one-stream call
 decodes inline on the caller's thread; a failing stream raises the serial
 decode's error for the first failing index, once every task is done; the
 span ``jpeg.decode`` stays one a call, on the caller's thread, with the
-``threads`` it used, and ``pooled_calls`` counts the pooled calls.  No
-JAX here."""
+``threads`` it used, more than one for a pooled call.  No JAX here."""
 
 import contextlib
 import os
@@ -16,10 +15,11 @@ import time
 
 import pytest
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from attentionalpoolingaction_torch.data import jpeg
 from attentionalpoolingaction_torch.utils import profiling
+
+from kernel_trace import traced
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures_torch")
 NAMES = ["odd_517x333.jpg", "gray_400x300.jpg", "portrait_480x640.jpg",
@@ -53,14 +53,20 @@ def num_threads(n):
         torch.set_num_threads(was)
 
 
+def pooled(trace):
+    """Whether each ``jpeg.decode`` call of a trace took the pool."""
+    return [s.ids["threads"] > 1 for s in trace.spans("jpeg.decode")]
+
+
 @pytest.mark.parametrize("n", [1, 2, 7, 8, 17])
-def test_a_pooled_batch_is_the_image_by_image_decode(n):
+def test_a_pooled_batch_is_the_image_by_image_decode(n, monkeypatch):
     datas = streams(n)
     want = [jpeg.decode([d], "cpu")[0] for d in datas]
-    jpeg.reset_counts()
+    seen = recording(monkeypatch)
     with num_threads(4):
-        got = jpeg.decode(datas, "cpu")
-    assert jpeg.pooled_calls == (n > 1)
+        got, trace = traced(lambda: jpeg.decode(datas, "cpu"))
+    assert pooled(trace) == [n > 1]
+    assert (threading.get_ident() in seen["threads"]) == (n == 1)
     assert len(got) == n
     for i, (a, b) in enumerate(zip(got, want)):
         assert a.shape == b.shape and torch.equal(a, b), i
@@ -97,16 +103,15 @@ def recording(monkeypatch, delay=0.0, fail=()):
 
 def test_a_one_image_call_decodes_on_the_callers_thread(monkeypatch):
     seen = recording(monkeypatch)
-    jpeg.reset_counts()
     with num_threads(4):
-        (img,) = jpeg.decode(streams(1), "cpu")
+        (img,), trace = traced(lambda: jpeg.decode(streams(1), "cpu"))
     assert seen["threads"] == [threading.get_ident()]
-    assert img.shape == (333, 517, 3) and jpeg.pooled_calls == 0
+    assert img.shape == (333, 517, 3) and pooled(trace) == [False]
     with num_threads(4):
-        jpeg.decode(streams(8), "cpu")
-    pooled = set(seen["threads"][1:])
-    assert threading.get_ident() not in pooled and 1 <= len(pooled) <= 4
-    assert jpeg.pooled_calls == 1
+        _, trace = traced(lambda: jpeg.decode(streams(8), "cpu"))
+    on = set(seen["threads"][1:])
+    assert threading.get_ident() not in on and 1 <= len(on) <= 4
+    assert pooled(trace) == [True]
 
 
 @pytest.mark.parametrize("torch_threads, n, width", [
@@ -154,19 +159,16 @@ def test_a_header_error_raises_before_any_decode(monkeypatch):
 
 
 def test_one_span_a_call_with_its_threads_and_the_pooled_count():
-    with profiling.span("between.sessions"):
-        pass
-    jpeg.reset_counts()
-    with num_threads(4), profile(activities=[ProfilerActivity.CPU]):
-        jpeg.decode(streams(8), "cpu")
-        jpeg.decode(streams(1), "cpu")
-        jpeg.decode(streams(3), "cpu")
-    spans = [s for s in profiling.spans() if s.name == "jpeg.decode"]
+    with num_threads(4):
+        _, trace = traced(lambda: [jpeg.decode(streams(k), "cpu")
+                                   for k in (8, 1, 3)])
+    spans = trace.spans("jpeg.decode")
     assert [s.ids for s in spans] == [{"images": 8, "threads": 4},
                                       {"images": 1, "threads": 1},
                                       {"images": 3, "threads": 3}]
     assert {s.thread for s in spans} == {threading.get_ident()}
-    assert jpeg.pooled_calls == 2
+    assert spans == [s for s in profiling.spans() if s.name == "jpeg.decode"]
+    assert pooled(trace).count(True) == 2
     tot = profiling.span_totals()["jpeg.decode"]
     assert (tot["count"], tot["images"], tot["threads"]) == (3, 12, 8)
 
@@ -185,19 +187,22 @@ def test_callers_on_many_threads_share_the_pool():
         except Exception as e:      # noted for the assertion below
             errors.append(e)
 
-    jpeg.reset_counts()
+    def callers():
+        threads = [threading.Thread(target=caller) for _ in range(6)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        return threads
+
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
         with num_threads(4):
-            threads = [threading.Thread(target=caller) for _ in range(6)]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=120)
+            threads, trace = traced(callers)
     finally:
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads) and not errors, errors
-    assert len(results) == 30 and jpeg.pooled_calls == 30
+    assert len(results) == 30 and pooled(trace) == [True] * 30
     for got in results:
         assert all(torch.equal(a, b) for a, b in zip(got, want))

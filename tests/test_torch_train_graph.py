@@ -7,8 +7,8 @@ of a schedule whose learning rate moves every step, with attention and
 with pose attention (losses, ``grad_norm``, parameters, batch norm's
 buffers, momentum, the EMA, within 1e-6 relative), the capture leaving
 the state as it was, a step's metrics surviving the next step, a restore
-between steps or a change of TF32 capturing again, and the head kernels'
-launches counted at each replay.  The card's tests run with cuDNN's
+between steps or a change of TF32 capturing again, and the head's kernels
+run at each replay, counted from the profiler's trace.  The card's tests run with cuDNN's
 deterministic algorithms, so that two eager runs agree bit for bit and a
 gap is the graph's.
 
@@ -25,7 +25,8 @@ import torch
 
 from attentionalpoolingaction_torch import config as config_lib
 from attentionalpoolingaction_torch import precision, train
-from attentionalpoolingaction_torch.ops import attn_pool_cuda as apc
+
+from kernel_trace import traced
 
 torch.set_num_threads(2)
 REL = 1e-6
@@ -280,16 +281,21 @@ def test_a_change_of_tf32_captures_again(card):
 
 
 @pytest.mark.cuda
-def test_each_replay_counts_the_head_kernels_launches(card):
+def test_each_replay_runs_the_head_kernels(card):
+    """Each step's trace: the first rehearses the step eagerly
+    ``train._REHEARSALS`` times, captures it (which runs nothing) and
+    replays it; each later step is one replay.  Each rehearsal and each
+    replay runs each head kernel once."""
     cfg = card_cfg()
     data = batches(3, card)
     state, spec = train.create_state(cfg, device="cuda")
     step = train.make_train_step(spec, cfg)
-    apc.reset_launch_counts()
-    for k, b in enumerate(data, start=1):
-        step(state, b)
-        (graph,) = step.graphs.graphs.values()
-        assert graph.launches == {"saliency_summary": 1, "project_logits": 1,
-                                  "pool_backward": 1}
-        assert apc.launch_counts == {n: k * c
-                                     for n, c in graph.launches.items()}
+    for k, b in enumerate(data):
+        _, trace = traced(lambda: step(state, b))
+        runs = 1 + (train._REHEARSALS if k == 0 else 0)
+        assert trace.launches == {"saliency_summary": runs,
+                                  "project_logits": runs,
+                                  "pool_backward": runs, "ycc_to_rgb": 0}
+        assert len(trace.spans("train.capture")) == (k == 0)
+        assert len(trace.spans("train.replay")) == 1
+    assert (step.graphs.captures, step.graphs.replays) == (1, 3)
