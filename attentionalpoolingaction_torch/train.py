@@ -48,14 +48,16 @@ With ``remat_units`` each bottleneck of the backbone is rematerialized
 in the backward (``models/resnet.py``), its batch norms moving their
 running statistics once a step.
 
-On one card the step runs as a CUDA graph (:class:`StepGraphs`): the
+On a card the step runs as a CUDA graph (:class:`StepGraphs`): the
 forward, the backward, the clip, the update and the EMA are captured at
 the first step of a batch shape (and backend settings) and replayed
 after, the learning rate and the EMA decay written into device scalars
-each step.  A mesh or process group, gradient accumulation,
-``remat_units``, an optimizer the graph cannot run
-(:func:`graph_blockers`) or a key past ``MAX_STEP_GRAPHS`` runs the eager
-step, as the CPU does.
+each step.  On a pure data-parallel mesh over NCCL each rank captures its
+step with its collectives (the counts', the gradients' and the losses'
+all-reduces), every rank at the same step.  A mesh over another backend
+(gloo), a model axis, gradient accumulation, ``remat_units``, an
+optimizer the graph cannot run (ZeRO-1's, AdamW; :func:`graph_blockers`)
+or a key past ``MAX_STEP_GRAPHS`` runs the eager step, as the CPU does.
 """
 
 from __future__ import annotations
@@ -70,6 +72,7 @@ import re
 import signal
 import threading
 import time
+import zlib
 from typing import Callable, Iterable, Mapping
 
 import numpy as np
@@ -395,26 +398,36 @@ def make_loss_fn(spec: DatasetSpec, cfg: config_lib.TrainConfig,
     With ``group`` (the data axis's process group) each count a loss
     divides by (the rows or the mask's sum, the visible joints) is summed
     over the group first, in one all-reduce, so that the loss is this
-    rank's share of the global batch's loss."""
+    rank's share of the global batch's loss.  That all-reduce, the step's
+    first collective, also carries ``BALLOT_SLOTS`` more values, zeros
+    unless a rank votes on capturing the step (:meth:`StepGraphs.agree`):
+    ``loss_fn.counts(batch, ballot)`` makes it alone, and
+    ``loss_fn(model, batch, train, counts)`` then takes its sums instead of
+    making it again."""
     with_pose = cfg.pooling == "pose_attention" and spec.has_pose
 
-    def global_counts(batch, visb):
+    def global_counts(batch, visb=None, ballot=None):
         mask = batch.get("mask")
         local = [mask.to(torch.float32).sum() if mask is not None else
-                 torch.tensor(float(batch["label"].shape[0]),
-                              device=batch["label"].device)]
+                 batch["label"].new_full((), batch["label"].shape[0],
+                                         dtype=torch.float32)]
         if with_pose:
+            if visb is None:
+                visb = pose_targets(batch, image_size=cfg.image_size)[1]
             local.append(visb.sum())
         counts = torch.stack(local).detach()
+        counts = torch.cat([counts, counts.new_zeros(BALLOT_SLOTS)
+                            if ballot is None else ballot])
         torch.distributed.all_reduce(counts, group=group)
         return counts
 
-    def loss_fn(model: ActionModel, batch, train: bool):
+    def loss_fn(model: ActionModel, batch, train: bool, counts=None):
         model.train(train)
         if with_pose:
             target, visb = pose_targets(batch, image_size=cfg.image_size)
-        counts = (global_counts(batch, visb if with_pose else None)
-                  if group is not None else [None, None])
+        if counts is None:
+            counts = (global_counts(batch, visb if with_pose else None)
+                      if group is not None else [None, None])
         out = model(normalize_images(batch["image"]))
         total = classification_loss(
             out["logits"], batch["label"], multi_label=spec.multi_label,
@@ -429,6 +442,7 @@ def make_loss_fn(spec: DatasetSpec, cfg: config_lib.TrainConfig,
         metrics["loss/total"] = total.detach()
         return total, metrics
 
+    loss_fn.counts = global_counts
     return loss_fn
 
 
@@ -571,6 +585,31 @@ def _clip_gradients(state: TrainState, cfg: config_lib.TrainConfig
     return norm
 
 
+def _exchange(model: nn.Module, metrics: dict, group) -> dict:
+    """The data group's sums, in place, between the backward and the clip:
+    every parameter's gradient (zeros where the loss did not reach it)
+    all-reduced as flat buckets (span ``train.all_reduce``, with the
+    ``bytes`` and the ``buckets``, the collectives it took), then the
+    losses, each rank's share of the global batch's, summed (span
+    ``train.loss_reduce``).  Returns the global metrics.  The eager step
+    and the step's graph both make it, so their collectives agree."""
+    params = list(model.parameters())
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in params]
+    with profiling.span("train.all_reduce") as s:
+        buckets = mesh_lib.all_reduce_flat(grads, group)
+        if s is not None:
+            s.ids.update(buckets=buckets, bytes=sum(
+                g.numel() * g.element_size() for g in grads))
+    keys = sorted(metrics)
+    shares = torch.stack([metrics[k] for k in keys])
+    with profiling.span("train.loss_reduce"):
+        torch.distributed.all_reduce(shares, group=group)
+    return dict(zip(keys, shares.unbind()))
+
+
 def _ema_decay(cfg: config_lib.TrainConfig, step: int) -> float:
     """The EMA's decay after update ``step``: TF ExponentialMovingAverage
     (num_updates=step), min(decay, (1+t)/(10+t)), in float32 as the JAX
@@ -602,8 +641,12 @@ def _global_norm(state: TrainState, grads) -> torch.Tensor:
 # keys (a batch's shapes and dtypes, the backend settings) a step keeps a
 # graph for; a step of a further key is eager
 MAX_STEP_GRAPHS = 4
-# eager steps on the capture's stream before it, undone after them
+# eager steps on the capture's stream before it, undone after them (on a
+# mesh they also make the NCCL communicators, which a capture cannot)
 _REHEARSALS = 3
+# values after the counts in the counts' all-reduce: a rank's vote on
+# capturing (1, the key's hash h, h * h), zeros where it does not vote
+BALLOT_SLOTS = 3
 
 
 def _capturable(opt: torch.optim.Optimizer) -> bool:
@@ -621,16 +664,26 @@ def graph_blockers(state: TrainState, cfg: config_lib.TrainConfig,
                    mesh=None) -> list[str]:
     """Why the step of ``state`` cannot run as a CUDA graph, empty where it
     can: ``device`` (the state is not on a card), ``mesh`` (a mesh or a
-    process group: the step's collectives run between its phases),
-    ``grad_accum_steps`` (more than one), ``remat_units`` and
-    ``optimizer`` (not one :func:`_capturable` takes)."""
+    process group whose collectives are not NCCL's, such as gloo's, which a
+    graph cannot hold), ``model_axis`` (the plan shards the head over a
+    model axis of more than one: its all-gather and the clip's all-reduce
+    of the shards' norms), ``grad_accum_steps`` (more than one),
+    ``remat_units`` and ``optimizer`` (not one :func:`_capturable` takes:
+    ZeRO-1's among them).  A pure data-parallel mesh over NCCL graphs,
+    its collectives in the graph."""
     out = []
     if next(state.model.parameters()).device.type != "cuda":
         out.append("device")
-    if mesh is not None or state.mesh is not None or (
-            torch.distributed.is_available()
-            and torch.distributed.is_initialized()):
-        out.append("mesh")
+    mesh = mesh if mesh is not None else state.mesh
+    joined = (torch.distributed.is_available()
+              and torch.distributed.is_initialized())
+    if mesh is not None or joined:
+        group = (mesh_lib.axis_group(mesh, "data")
+                 if mesh is not None and joined else None)
+        if not joined or torch.distributed.get_backend(group) != "nccl":
+            out.append("mesh")
+    if state.plan is not None and state.plan.model_size > 1:
+        out.append("model_axis")
     if max(int(cfg.grad_accum_steps or 1), 1) > 1:
         out.append("grad_accum_steps")
     if cfg.remat_units:
@@ -687,13 +740,20 @@ class _StepGraph:
     moved is put back bit for bit: the parameters, the buffers, the
     momentum and the EMA (``state.step`` is not moved).  A momentum buffer
     no step has made yet is made first as zeros, the same first step with
-    dampening 0."""
+    dampening 0.
+
+    With a data ``group`` the body makes the eager step's exchange
+    (:func:`_exchange`) between the backward and the clip, and the
+    rehearsals make its collectives eagerly, so that the communicators
+    exist before the capture; the capture's error mode is thread-local,
+    since NCCL's watchdog thread queries events while it runs."""
 
     def __init__(self, state: TrainState, batch, loss_fn, schedule,
-                 cfg: config_lib.TrainConfig):
+                 cfg: config_lib.TrainConfig, group=None):
         self.model, self.opt = state.model, state.optimizer
         self.opt_state, self.ema = self.opt.state, state.ema_params
         self.cfg, self.loss_fn, self.schedule = cfg, loss_fn, schedule
+        self.group = group
         dev = next(self.model.parameters()).device
         self.inputs = {k: torch.empty_like(v, device=dev)
                        for k, v in batch.items()}
@@ -753,6 +813,8 @@ class _StepGraph:
         self.opt.zero_grad(set_to_none=True)
         total, metrics = self.loss_fn(self.model, self.inputs, True)
         total.backward()
+        if self.group is not None:
+            metrics = _exchange(self.model, metrics, self.group)
         metrics["grad_norm"] = _clip_gradients(state, self.cfg)
         with torch.no_grad():
             _sgd_update(self.opt, self.lr)
@@ -792,11 +854,12 @@ class _StepGraph:
 
 
 class StepGraphs:
-    """The single-card train step as CUDA graphs, one a key (the batch's
-    shapes and dtypes, the backend settings): captured at the first step
-    of a key
+    """The train step as CUDA graphs, one a key (the batch's shapes and
+    dtypes, the backend settings): captured at the first step of a key
     (:class:`_StepGraph`) and replayed at every step of it, a few host
-    calls where the eager step launches ~2,000 kernels.  A key past
+    calls where the eager step launches ~2,000 kernels.  On a data group
+    (``group``) each rank captures its own graph, the step's collectives
+    in it, and the ranks capture together (:meth:`agree`).  A key past
     ``MAX_STEP_GRAPHS`` takes the eager step; a graph whose state was
     replaced by a restore is captured again.  ``captures`` and
     ``replays`` count them.  Traced, a capture is the span
@@ -804,9 +867,9 @@ class StepGraphs:
     in it ``train.graph_launch``."""
 
     def __init__(self, cfg: config_lib.TrainConfig, loss_fn, schedule,
-                 mesh=None):
+                 mesh=None, group=None):
         self.cfg, self.loss_fn, self.schedule = cfg, loss_fn, schedule
-        self.mesh = mesh
+        self.mesh, self.group = mesh, group
         self.graphs: dict[tuple, _StepGraph] = {}
         self.captures = self.replays = 0
         self._said = None
@@ -824,10 +887,47 @@ class StepGraphs:
             self._said = out
         return out
 
+    def agree(self, state: TrainState, batch
+              ) -> tuple[bool, torch.Tensor | None]:
+        """``(True, None)`` where this step replays a graph, captured first
+        where there is none, with every rank of the data group doing the
+        same; ``(False, counts)`` where the ranks did not all vote to
+        capture, and the step is eager, with the counts the vote summed.
+
+        A replay makes the collectives of the eager step, in its order and
+        of its sizes, so a rank replays with no word to the others where
+        its graph of the key is there and reads ``state``.  A capture
+        rehearses the step first: every rank has to capture at the same
+        step, or one waits in a collective that no other makes.  So where
+        its graph is missing or stale a rank votes, in the counts'
+        all-reduce that opens every step (:func:`make_loss_fn`), a
+        ``BALLOT_SLOTS`` ballot of 1, h and h * h, h a hash of its key in
+        1..256; a rank that replays adds zeros there.  The ranks capture
+        when every rank voted and all the hashes are equal (n * sum(h * h)
+        = sum(h) ** 2), exact in float32.  A graph's collectives do not
+        depend on the key, so two keys of one hash do no harm."""
+        key = _graph_key(batch)
+        graph = self.graphs.get(key)
+        if self.group is None or (graph is not None
+                                  and not graph.stale(state)):
+            return True, None
+        h = zlib.crc32(repr(key).encode()) % 256 + 1
+        dev = batch["label"].device
+        counts = self.loss_fn.counts(batch, ballot=torch.tensor(
+            [1.0, h, h * h], device=dev))
+        n, hashes, squares = counts[-BALLOT_SLOTS:].tolist()
+        ranks = torch.distributed.get_world_size(self.group)
+        if n == ranks and ranks * squares == hashes * hashes:
+            return True, None
+        log.info("step %d: %d of %d ranks voted to capture the step for %s;"
+                 " eager", state.step + 1, int(n), ranks, key)
+        return False, counts
+
     def capture(self, state: TrainState, batch) -> _StepGraph:
         """The graph of ``batch``'s key for ``state``, captured now unless
         it is there and reads ``state``'s tensors; ``state`` is left as it
-        was (:class:`_StepGraph`)."""
+        was (:class:`_StepGraph`).  On a data group every rank calls it at
+        the same step (:meth:`agree`)."""
         key = _graph_key(batch)
         graph = self.graphs.get(key)
         if graph is not None and not graph.stale(state):
@@ -838,7 +938,7 @@ class StepGraphs:
         t0 = time.perf_counter()
         with profiling.span("train.capture"):
             graph = _StepGraph(state, batch, self.loss_fn, self.schedule,
-                               self.cfg)
+                               self.cfg, self.group)
         self.graphs[key] = graph
         self.captures += 1
         log.info("step %d: captured the step as a CUDA graph for %s in "
@@ -870,21 +970,26 @@ def make_train_step(spec: DatasetSpec, cfg: config_lib.TrainConfig,
     gradients are all-reduced over the data axis before the clip, and the
     metrics are the global batch's, equal on every rank.
 
-    On one card the step replays CUDA graphs (``step_fn.graphs``, a
+    The step replays CUDA graphs (``step_fn.graphs``, a
     :class:`StepGraphs`) wherever ``graph_blockers`` finds nothing in the
-    way; otherwise it runs ``step_fn.eager``, traced as the spans
-    ``train.forward``, ``train.backward`` and ``train.optimizer``, and on
-    a mesh ``train.all_reduce`` (the gradients' exchange: its ``bytes``
-    and ``buckets``, the collectives it took) and ``train.loss_reduce``
-    (the metrics')."""
+    way: on one card, and on a pure data-parallel mesh over NCCL, its
+    collectives in each rank's graph.  Otherwise it runs ``step_fn.eager``,
+    traced as the spans ``train.forward``, ``train.backward`` and
+    ``train.optimizer``, and on a mesh ``train.all_reduce`` (the
+    gradients' exchange: its ``bytes`` and ``buckets``, the collectives it
+    took) and ``train.loss_reduce`` (the metrics'); on a mesh the graph's
+    capture makes those two spans too (:func:`_exchange`)."""
     data = mesh_lib.axis_size(mesh, "data")
     group = mesh_lib.axis_group(mesh, "data")
     loss_fn = make_loss_fn(spec, cfg, group)
     schedule = make_learning_rate(cfg)
     accum = max(int(cfg.grad_accum_steps or 1), 1)
-    graphs = StepGraphs(cfg, loss_fn, schedule, mesh)
+    graphs = StepGraphs(cfg, loss_fn, schedule, mesh, group)
 
-    def eager(state: TrainState, batch: Mapping[str, torch.Tensor]):
+    def eager(state: TrainState, batch: Mapping[str, torch.Tensor],
+              counts=None):
+        # counts: the global counts a failed vote already summed
+        # (StepGraphs.agree), one microbatch's
         b = batch["image"].shape[0]
         m = b // accum
         state.optimizer.zero_grad(set_to_none=True)
@@ -893,7 +998,9 @@ def make_train_step(spec: DatasetSpec, cfg: config_lib.TrainConfig,
             mb = ({k: v[i * m:(i + 1) * m] for k, v in batch.items()}
                   if accum > 1 else batch)
             with profiling.span("train.forward"):
-                total, metrics = loss_fn(state.model, mb, True)
+                total, metrics = (loss_fn(state.model, mb, True)
+                                  if counts is None else
+                                  loss_fn(state.model, mb, True, counts))
             with profiling.span("train.backward"):
                 total.backward()
             micro.append(metrics)
@@ -903,22 +1010,7 @@ def make_train_step(spec: DatasetSpec, cfg: config_lib.TrainConfig,
             metrics = {k: torch.stack([mt[k] for mt in micro]).mean()
                        for k in micro[0]}
         if group is not None:
-            for p in state.model.parameters():
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            grads = [p.grad for p in state.model.parameters()]
-            with profiling.span("train.all_reduce") as s:
-                buckets = mesh_lib.all_reduce_flat(grads, group)
-                if s is not None:
-                    s.ids.update(buckets=buckets, bytes=sum(
-                        g.numel() * g.element_size() for g in grads))
-            # each rank's losses are its shares: their sum is the global
-            # batch's
-            keys = sorted(metrics)
-            shares = torch.stack([metrics[k] for k in keys])
-            with profiling.span("train.loss_reduce"):
-                torch.distributed.all_reduce(shares, group=group)
-            metrics = dict(zip(keys, shares.unbind()))
+            metrics = _exchange(state.model, metrics, group)
         with profiling.span("train.optimizer"):
             metrics["grad_norm"] = apply_gradients(state, cfg, schedule)
         return state, metrics
@@ -938,6 +1030,9 @@ def make_train_step(spec: DatasetSpec, cfg: config_lib.TrainConfig,
                              "the step's (create_state(mesh=...))")
         if graphs.eager_reasons(state, batch):
             return eager(state, batch)
+        graphed, counts = graphs.agree(state, batch)
+        if not graphed:
+            return eager(state, batch, counts)
         return state, graphs.step(state, batch)
 
     step_fn.graphs, step_fn.eager = graphs, eager
